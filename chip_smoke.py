@@ -1,4 +1,5 @@
-"""Chip smoke test of the PyTorch/CUDA port: the ViDAR forecast on one GPU.
+"""Chip smoke test of the PyTorch/CUDA port: the ViDAR forecast and the
+pre-training step on one GPU.
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and the
 CUDA toolkit:
@@ -10,18 +11,34 @@ result line):
 
 0. the card (``nvidia-smi`` name and power limit), torch and CUDA versions,
    and the TF32 switches, set explicitly;
-1. the build of the four CUDA kernels from ``vidar_tpu_torch/csrc``;
+1. the build of the CUDA kernels from ``vidar_tpu_torch/csrc`` (K1-K4 and
+   the backwards K5, K6/K7, K8);
 2. one full forecast of ``vidar_base`` in bf16 at the nuScenes shapes of
    bench.py (bs 1, 4+1 frames, 6 cameras, 928x1600, 6 futures, 32768 rays),
    random weights (N(0, 1) x 0.02 from a seeded generator), through
-   ``ForecastRunner``; every kernel's launch count must be > 0, and each
-   kernel's first input is kept;
-   then the small-input check: ``vidar_tiny`` at the bench.py smoke shapes,
-   on the card (kernels) and on the CPU (plain versions), same weights and
-   batch;
-3. each kernel against its plain PyTorch version on the kept inputs, error
-   and CUDA-event times of both;
-4. a second, timed forecast: seconds, samples/s, peak device memory.
+   ``ForecastRunner``; every forward kernel's launch count must be > 0, and
+   each kernel's first input is kept; then the small-input forecast check
+   (``vidar_tiny``, card kernels vs CPU plain versions, same weights and
+   batch);
+3. each forward kernel against its plain PyTorch version on the kept
+   inputs: error and CUDA-event times of both, and the bound: the larger of
+   the bytes the function must move over 3.35 TB/s and its floating-point
+   operations over the card's peak rate for their type;
+4. a second, timed forecast: seconds, samples/s, peak device memory (the
+   forecast's own: the train model does not exist yet);
+5. the first (warm-up) pre-training step of ``vidar_base`` at full width
+   and depth in bf16 with f32 parameters, the shapes of
+   benchmarks/train_step_flagship.py (bs 1, 4+1 frames, 6 cameras at
+   928x1600, 3 supervised futures, 32768 GT points), random weights as
+   above, through ``TrainStep`` and ``make_optimizer``: every kernel, K1 to
+   K8, must launch, the losses and the gradient norm must be finite, the
+   parameters must move, and each backward kernel's first input is kept;
+   the small-input train check (``vidar_tiny``, one forward and backward on
+   the card and on the CPU, same weights and batch: the losses and the
+   cosine similarity of the gradients); each backward kernel against
+   autograd of its plain forward in f32 on the kept inputs, as in phase 3;
+   then two timed steps, the forward alone (autograd on, the graph freed
+   without a backward) and the step's peak device memory.
 
 The line before the last is a JSON object of per-kernel results; the last
 is ``{"ok": true, "device": {...}}``.
@@ -52,6 +69,16 @@ TOLERANCES = {
     # two sums over <= 256 waypoints in another order, then one division
     'ray_aggregate_forward': (1e-5, 1e-4),
 }
+# Backward kernels against autograd of the plain version in f32: f32 atomic
+# sums in an order that changes from run to run (1e-4 of the largest
+# gradient); a gradient the kernel returns in bf16 is also rounded once to
+# bf16 (2^-9 of the element), hence 4e-3 of the largest
+BACKWARD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 4e-3}
+
+# NVIDIA H100 SXM peaks (data sheet, dense): HBM bytes/s, bf16 tensor-core
+# and f32 (no tensor core) operations/s
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {'bf16': 989e12, 'f32': 67e12}
 
 
 def _nvidia_smi() -> str:
@@ -77,7 +104,7 @@ def _time_ms(fn, reps=3) -> float:
 
 def _unit_scale_(model, generator):
     """Random weights with unit-scale activations for the small-input
-    check: kernels N(0, 1/fan_in), norm scales 1 + N(0, 0.1), biases
+    checks: kernels N(0, 1/fan_in), norm scales 1 + N(0, 0.1), biases
     N(0, 0.1), embeddings N(0, 1)."""
     with torch.no_grad():
         for name, t in model.state_dict().items():
@@ -118,6 +145,150 @@ def _dcn_case(args):
     return {256: 'stage3', 512: 'stage4'}.get(args['x'].shape[-1])
 
 
+def _run_counted(kernels, keepers, fn):
+    """Run fn with every kernel's count set to 0 and its keeper hooked;
+    -> (fn's result, {kernel: launches})."""
+    for k in kernels:
+        k.on_launch = keepers.get(k.name)
+        k.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    for k in kernels:
+        k.on_launch = None
+    return out, launches
+
+
+# ------------------------------------------------------------ bound model
+
+def _nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _msda_valid_samples(loc, spatial_shapes):
+    """Samples whose top-left corner touches the map (the others cost no
+    loads), counted from this run's locations."""
+    n = 0
+    for lvl, (h, w) in enumerate(spatial_shapes):
+        x = torch.floor(loc[..., lvl, :, 0] * w - 0.5)
+        y = torch.floor(loc[..., lvl, :, 1] * h - 0.5)
+        n += int(((x >= -1) & (x <= w - 1) & (y >= -1) &
+                  (y <= h - 1)).sum())
+    return n
+
+
+def _ray_counts(grids, radial_norm, steps):
+    """(inside, valid): the (cell, waypoint) pairs the first-hit pass
+    samples (strictly closer to the centre than the cell) and those the
+    aggregation samples (inside the boundary square), from this run's
+    geometry."""
+    way = (0.5 + radial_norm[:, None, :] * steps[None, :, None]) * 2.0 - 1.0
+    length = torch.sqrt((way ** 2).sum(-1))
+    cell = torch.sqrt(((grids * 2.0 - 1.0) ** 2).sum(-1))
+    boundary = torch.minimum(1.0 / radial_norm[:, 0].abs(),
+                             1.0 / radial_norm[:, 1].abs())
+    return (int((length < cell[:, None]).sum()),
+            int((length < boundary[:, None]).sum()))
+
+
+def _bound(nbytes, flops):
+    """-> (bound_ms, bound_by): the larger of bytes / HBM rate and, for
+    each type, its operations / peak rate of that type (flops: {type:
+    count})."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(n / PEAK_OPS[kind] * 1e3 for kind, n in flops.items())
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+# Floating-point operations per unit of work, an FMA counted as 2 as the
+# peak rates count it. They count the least the function needs, not what a
+# kernel does: K6/K7 and K8 sample each waypoint twice, and that recompute
+# is not charged.
+#   geo      the ray geometry of one (cell, waypoint): the waypoint, its
+#            length and the test against the cell or the boundary
+#   corners  one sample point's map coordinates, floors, fractions and 4
+#            corner weights, shared by all its channels
+#   lerp     one channel's bilinear sample: 4 FMAs
+#   scatter  one value into one channel's 4 corners: 4 products, 4 adds
+#   act      an activation (negation, exp, add, reciprocal); dact its slope
+FLOPS = dict(geo=13, corners=18, lerp=8, scatter=8, act=4, dact=2)
+
+
+def _cost(name, a, out_bytes):
+    """(bytes, {type: flops}) of one call of kernel `name` on inputs a."""
+    F = FLOPS
+    if name.startswith('msda'):
+        v, loc, w = a['value'], a['loc'], a['weights']
+        dim = v.shape[-1]
+        n = _msda_valid_samples(loc, a['spatial_shapes'])
+        if name == 'msda_forward':
+            # per sample: its corner weights times the attention weight;
+            # per channel: 4 FMAs into the output
+            return (_nbytes(v, loc, w) + out_bytes,
+                    {'f32': n * (F['corners'] + 4 + dim * F['lerp'])})
+        # per channel: the 4 corner dots t_c (4 FMAs) and the dvalue
+        # scatter; per sample: the weights as forward, dweight (4 FMAs),
+        # dwx, dwy (2 differences, 2 FMAs and the attention weight, each)
+        # and the two map-size scales of dloc
+        return (_nbytes(v, loc, w, a['dout']) + out_bytes,
+                {'f32': n * (F['corners'] + 4 + 8 + 14 + 2 +
+                             dim * (F['lerp'] + F['scatter']))})
+    if name == 'dcn_conv_forward':
+        x, w = a['x'], a['weight']
+        b, q = a['sx'].shape[:2]
+        taps = b * q * 9
+        # the matrix product in bf16; the sampling (per tap: corners; per
+        # tap and channel: 4 FMAs and the mask product) in f32
+        return (_nbytes(x, a['sx'], a['sy'], a['mask'], w) + out_bytes,
+                {'bf16': 2 * b * q * w.shape[0] * w.shape[1],
+                 'f32': taps * (F['corners'] + x.shape[-1] * (F['lerp'] + 1))})
+    geo = (a['grids'], a['radial_norm'], a['steps'])
+    inside, valid = _ray_counts(*geo)
+    n, steps = a['grids'].shape[0], a['steps'].shape[0]
+    path = n * steps * F['geo']
+    if name.startswith('ray_first_hit'):
+        occ = a['occ']
+        bz = occ.shape[0] * occ.shape[-1]
+        points = inside + n          # the inside waypoints and the cell
+        shared = path + points * F['corners']
+        if name == 'ray_first_hit_forward':
+            # per (point, bin): sample, activation, 1 - p and the product
+            return (_nbytes(occ, *geo) + out_bytes,
+                    {'f32': shared + bz * points *
+                     (F['lerp'] + F['act'] + 2)})
+        # per (point, bin): sample, activation and slope once, 1 - p, the
+        # prefix and suffix products, dlogit (3 products) and its scatter
+        return (_nbytes(occ, a['g'], *geo) + out_bytes,
+                {'f32': shared + bz * points *
+                 (F['lerp'] + F['act'] + F['dact'] + 6 + F['scatter'])})
+    fmap = a['fused_map']
+    b, c_r, zdim = fmap.shape[0], a['c_r'], a['zdim']
+    shared = path + valid * F['corners']
+    if name == 'ray_aggregate_forward':
+        # per (valid waypoint, feature): sample and an FMA into num; per
+        # (valid waypoint, bin): sample and an add into den; per output: an
+        # add and a division
+        return (_nbytes(fmap, *geo) + out_bytes,
+                {'f32': shared + b * valid * (c_r * (F['lerp'] + 2) +
+                                              zdim * (F['lerp'] + 1))
+                 + b * n * c_r * 2})
+    # (num, den) kept from the forward. Per output: dnum and dden (5); per
+    # (valid waypoint, feature): f once, dnum * p and its scatter,
+    # dnum * f + dden (an FMA); per (valid waypoint, bin): p once and the
+    # scatter of the bin's sum
+    return (_nbytes(fmap, a['g'], *geo) + out_bytes,
+            {'f32': shared + b * valid * (c_r * (F['lerp'] + 3 + F['scatter'])
+                                          + zdim * (F['lerp'] + F['scatter']))
+             + b * n * c_r * 5})
+
+
+def _plain_grads(fn, inputs, g):
+    """Autograd of a plain version in f32 (bf16 inputs upcast: the same
+    values): the gradients of <fn(*inputs), g> against the inputs."""
+    leaves = [x.detach().float().requires_grad_() for x in inputs]
+    return list(torch.autograd.grad(fn(*leaves), leaves, g))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -128,12 +299,14 @@ def main() -> int:
     from vidar_tpu_torch.evals.forecast_runner import ForecastRunner
     from vidar_tpu_torch.models import ViDAR
     from vidar_tpu_torch.ops import _build, dcn, latent_render, msda
+    from vidar_tpu_torch.train import TrainStep, make_optimizer
 
     dev = torch.device('cuda:0')
     # -- phase 0: the card and the numerics switches
     card = _nvidia_smi()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    print(card, flush=True)
     print(f'{card} | torch {torch.__version__} | CUDA '
           f'{torch.version.cuda} | device_count {torch.cuda.device_count()}'
           f' | matmul.allow_tf32=False cudnn.allow_tf32=False (f32 islands '
@@ -144,8 +317,11 @@ def main() -> int:
     print(f'build: {_build.build_seconds:.1f} s -> {_build.BUILD_DIR}',
           flush=True)
 
-    kernels = [msda.KERNEL, dcn.KERNEL, latent_render.FIRST_HIT,
-               latent_render.AGGREGATE]
+    forward_kernels = [msda.KERNEL, dcn.KERNEL, latent_render.FIRST_HIT,
+                       latent_render.AGGREGATE]
+    backward_kernels = [msda.BACKWARD, latent_render.FIRST_HIT_BACKWARD,
+                        latent_render.AGGREGATE_BACKWARD]
+    kernels = forward_kernels + backward_kernels
     keepers = {msda.KERNEL.name: _Keeper(_msda_case),
                dcn.KERNEL.name: _Keeper(_dcn_case),
                latent_render.FIRST_HIT.name: _Keeper(lambda a: 'encoder'),
@@ -162,16 +338,10 @@ def main() -> int:
                                  num_cams=cams, img_h=ih, img_w=iw,
                                  max_points=pts, device=dev)
     runner = ForecastRunner(model, (ih, iw), num_future=f, device=dev)
-    for k in kernels:
-        k.on_launch = keepers[k.name]
-        k.launches = 0
     t0 = time.perf_counter()
-    out = runner(batch)
-    torch.cuda.synchronize()
+    out, launches = _run_counted(forward_kernels, keepers,
+                                 lambda: runner(batch))
     first_s = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in kernels}
-    for k in kernels:
-        k.on_launch = None
     print(f'forecast 1 (incl. warm-up): {first_s:.3f} s; launches '
           f'{json.dumps(launches)}', flush=True)
     for name, n in launches.items():
@@ -198,15 +368,16 @@ def main() -> int:
     # small input: the same forecast through the kernels (card) and the
     # plain versions (CPU); the decode's GT geometry must agree and the
     # predictions must land on the same waypoints on nearly every ray
-    tcfg = vidar_tiny()
+    tcfg = vidar_tiny(use_grid_mask=False)
     tiny = ViDAR(**tcfg, dtype=torch.bfloat16, device=dev).eval()
     _unit_scale_(tiny, torch.Generator(device=dev).manual_seed(1))
-    tiny_cpu = ViDAR(**tcfg, dtype=torch.bfloat16).eval()
+    tiny_cpu = ViDAR(**tcfg, dtype=torch.bfloat16, device='cpu').eval()
     tiny_cpu.load_state_dict({k: v.cpu() for k, v in
                               tiny.state_dict().items()})
     small = dict(bs=1, queue_length=2, future_length=2, num_cams=3,
                  img_h=64, img_w=64, max_points=128)
-    sb = make_synthetic_batch(np.random.default_rng(0), **small)
+    sb = make_synthetic_batch(np.random.default_rng(0), **small,
+                              device='cpu')
     nf = tcfg['test_future_frame_num']
     got = ForecastRunner(tiny, (64, 64), num_future=nf, device=dev)(sb)
     ref = ForecastRunner(tiny_cpu, (64, 64), num_future=nf,
@@ -225,10 +396,23 @@ def main() -> int:
     if gt_err > 1e-4 or same < 0.5:
         raise RuntimeError('small-input forecast disagrees with the CPU')
 
-    # -- phase 3: every kernel against its plain version on kept inputs
+    # -- phase 3: every forward kernel against its plain version
     results = []
 
-    def compare(counter, case, run_kernel, run_plain):
+    def record(counter, case, err, scale, ok, ms, plain_ms, cost, n):
+        bound_ms, bound_by = _bound(*cost)
+        print(f'{counter.name}[{case}]: max_abs_err {err:.3g} (max|plain| '
+              f'{scale:.4g}) kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, '
+              f'bound {bound_ms:.4f} ms ({bound_by}) -> '
+              f'{"ok" if ok else "FAIL"}', flush=True)
+        results.append(dict(
+            name=f'{counter.name}[{case}]', route='cuda',
+            source=counter.source, replaces=counter.replaces,
+            launches=n[counter.name], max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None))
+
+    def compare(counter, case, args, run_kernel, run_plain):
         got = run_kernel()
         torch.cuda.synchronize()
         want = run_plain()
@@ -239,16 +423,8 @@ def main() -> int:
         ok = err <= atol + rtol * scale and bool(torch.isfinite(got).all())
         plain_ms = _time_ms(run_plain)
         ms = _time_ms(run_kernel)
-        torch.cuda.synchronize()
-        print(f'{counter.name}[{case}]: max_abs_err {err:.3g} (max|plain| '
-              f'{scale:.4g}, rel {err / max(scale, 1e-30):.3g}; tolerance '
-              f'{atol:g} + {rtol:g}*max|plain|) kernel {ms:.3f} ms, plain '
-              f'{plain_ms:.3f} ms -> {"ok" if ok else "FAIL"}', flush=True)
-        results.append(dict(
-            name=f'{counter.name}[{case}]', route='cuda',
-            source=counter.source, replaces=counter.replaces,
-            launches=launches[counter.name], max_abs_err=err, ms=ms,
-            plain_ms=plain_ms))
+        record(counter, case, err, scale, ok, ms, plain_ms,
+               _cost(counter.name, args, _nbytes(got)), launches)
         return ok
 
     oks = []
@@ -256,7 +432,7 @@ def main() -> int:
     for case in ('tsa', 'sca', 'decoder'):
         a = kept[case]
         oks.append(compare(
-            msda.KERNEL, f'{case},{str(a["value"].dtype)[6:]}',
+            msda.KERNEL, f'{case},{str(a["value"].dtype)[6:]}', a,
             lambda a=a: msda.msda_forward_cuda(a['value'],
                                                a['spatial_shapes'],
                                                a['loc'], a['weights']),
@@ -265,27 +441,28 @@ def main() -> int:
                                                  a['loc'], a['weights'])))
     a = dict(kept['sca'], value=kept['sca']['value'].float())
     oks.append(compare(
-        msda.KERNEL, 'sca,float32',
+        msda.KERNEL, 'sca,float32', a,
         lambda: msda.msda_forward_cuda(a['value'], a['spatial_shapes'],
                                        a['loc'], a['weights']),
         lambda: msda.msdeform_attn_plain(a['value'], a['spatial_shapes'],
                                          a['loc'], a['weights'])))
     for case, a in sorted(keepers[dcn.KERNEL.name].inputs.items()):
         args = (a['x'], a['sx'], a['sy'], a['mask'], a['weight'])
-        oks.append(compare(dcn.KERNEL, case,
+        oks.append(compare(dcn.KERNEL, case, a,
                            lambda args=args: dcn.dcn_conv_cuda(*args),
                            lambda args=args: dcn.dcn_conv_plain(*args)))
     a = keepers[latent_render.FIRST_HIT.name].inputs['encoder']
-    geo = (a['occ'], a['grids'], a['radial_norm'], a['steps'], a['act'])
+    geo = (a['grids'], a['radial_norm'], a['steps'])
     oks.append(compare(
-        latent_render.FIRST_HIT, 'encoder',
-        lambda: latent_render.ray_first_hit_cuda(*geo),
-        lambda: latent_render.ray_first_hit_plain(*geo)))
+        latent_render.FIRST_HIT, 'encoder', a,
+        lambda: latent_render.ray_first_hit_cuda(a['occ'], *geo, a['act']),
+        lambda: latent_render.ray_first_hit_plain(a['occ'], *geo,
+                                                  a['act'])))
     a = keepers[latent_render.AGGREGATE.name].inputs['encoder']
     agg = (a['fused_map'], a['grids'], a['radial_norm'], a['steps'],
            a['c_r'], a['zdim'], a['eps'])
     oks.append(compare(
-        latent_render.AGGREGATE, 'encoder',
+        latent_render.AGGREGATE, 'encoder', a,
         lambda: latent_render.ray_aggregate_cuda(*agg),
         lambda: latent_render.ray_aggregate_plain(*agg)))
     keepers.clear()
@@ -310,6 +487,173 @@ def main() -> int:
           f'{" ".join(f"{t:.4f}" for t in times)} s -> {dt:.4f} s/sample, '
           f'{bs / dt:.4f} samples/s, peak memory {peak / 2**30:.2f} GiB '
           f'on {card}', flush=True)
+    del model, runner, batch, out
+
+    # -- phase 5: the pre-training step at full width; the warm-up step,
+    # counted, keeps each backward kernel's first input
+    torch.cuda.empty_cache()
+    tr_model = ViDAR(**vidar_base(), dtype=torch.bfloat16, device=dev)
+    tr_model.randomize_(torch.Generator(device=dev).manual_seed(2), 0.02)
+    tr_batch = make_synthetic_batch(np.random.default_rng(0), bs=bs,
+                                    queue_length=q, future_length=3,
+                                    num_cams=cams, img_h=ih, img_w=iw,
+                                    max_points=pts, device=dev)
+    step = TrainStep(tr_model, make_optimizer(tr_model, device=dev),
+                     generator=torch.Generator(device=dev).manual_seed(3),
+                     device=dev)
+    before = [p.detach().clone() for p in tr_model.parameters()]
+    keepers = {k.name: _Keeper(_msda_case if k is msda.BACKWARD
+                               else lambda a: 'encoder')
+               for k in backward_kernels}
+    t0 = time.perf_counter()
+    metrics, train_launches = _run_counted(kernels, keepers,
+                                           lambda: step(tr_batch))
+    warm_s = time.perf_counter() - t0
+    print(f'train step 1 (incl. warm-up): {warm_s:.3f} s; launches '
+          f'{json.dumps(train_launches)}; metrics {json.dumps(metrics)}',
+          flush=True)
+    for name, n in train_launches.items():
+        if n <= 0:
+            raise RuntimeError(f'kernel {name} never launched in the train '
+                               f'step')
+    for r in results:
+        r['train_launches'] = train_launches[r['name'].split('[')[0]]
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise RuntimeError('non-finite train metrics')
+    if not metrics['grad_norm'] > 0:
+        raise RuntimeError('zero gradient norm')
+    moved = sum(bool((p.detach() != b0).any())
+                for p, b0 in zip(tr_model.parameters(), before))
+    del before
+    print(f'parameters moved: {moved} of {len(list(tr_model.parameters()))}',
+          flush=True)
+    if moved == 0:
+        raise RuntimeError('the train step moved no parameter')
+
+    # small-input train check: one forward and backward, dropout and noise
+    # off, through the kernels (card) and the plain versions (CPU)
+    tb = make_synthetic_batch(np.random.default_rng(0), **small,
+                              device='cpu')
+    sides = []
+    for m, d in ((tiny, dev), (tiny_cpu, 'cpu')):
+        m.zero_grad(set_to_none=True)
+        losses = m(tb.to(d))
+        sum(losses.values()).backward()
+        grads = {n: (p.grad if p.grad is not None else
+                     torch.zeros_like(p)).float().cpu()
+                 for n, p in m.named_parameters()}
+        sides.append(({k: float(x.detach()) for k, x in losses.items()},
+                      grads))
+    (lg, gg), (lc, gc) = sides
+    loss_err = max(abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-6) for k in lc)
+    flat_g = torch.cat([g.reshape(-1) for g in gg.values()])
+    flat_c = torch.cat([g.reshape(-1) for g in gc.values()])
+    cos = torch.nn.functional.cosine_similarity(flat_g, flat_c, 0).item()
+    biggest = max(float(g.norm()) for g in gc.values())
+    per_tensor = {n: torch.nn.functional.cosine_similarity(
+        gg[n].reshape(-1), gc[n].reshape(-1), 0).item()
+        for n in gc if float(gc[n].norm()) > 1e-3 * biggest}
+    worst = min(per_tensor, key=per_tensor.get)
+    print(f'small input train (vidar_tiny, 64x64, bf16), card vs CPU plain: '
+          f'losses max rel diff {loss_err:.3g}; gradient cosine {cos:.5f} '
+          f'(flattened), min per tensor {per_tensor[worst]:.4f} ({worst}, '
+          f'{len(per_tensor)} tensors)', flush=True)
+    # the bf16 model rounds differently on the two devices; a backward
+    # kernel that returns zeros leaves the tensors it feeds at cosine 0
+    if loss_err > 2e-2 or cos < 0.99 or per_tensor[worst] < 0.9:
+        raise RuntimeError('small-input train step disagrees with the CPU')
+    del tiny, tiny_cpu, sides, gg, gc
+
+    # the backward kernels on the train step's inputs, against autograd of
+    # the plain forward
+    def compare_backward(counter, case, args, run_kernel, plain_fn, inputs):
+        g = args['g'] if 'g' in args else args['dout']
+        got = run_kernel()
+        want = _plain_grads(plain_fn, inputs, g)
+        torch.cuda.synchronize()
+        ok, err0, scale0 = True, None, None
+        for x, gk, gp in zip(inputs, got, want):
+            err = (gk.float() - gp).abs().max().item()
+            scale = gp.abs().max().item()
+            tol = BACKWARD_RTOL[gk.dtype] * scale
+            ok = ok and err <= tol and bool(torch.isfinite(gk).all())
+            print(f'  {counter.name}[{case}] d{tuple(x.shape)} '
+                  f'{str(gk.dtype)[6:]}: err {err:.3g}, max|plain| '
+                  f'{scale:.4g}, tolerance {tol:.3g}', flush=True)
+            if err0 is None:
+                err0, scale0 = err, scale
+        plain_ms = _time_ms(lambda: _plain_grads(plain_fn, inputs, g))
+        ms = _time_ms(run_kernel)
+        record(counter, case, err0, scale0, ok, ms, plain_ms,
+               _cost(counter.name, args, _nbytes(*got)), train_launches)
+        results[-1]['train_launches'] = train_launches[counter.name]
+        return ok
+
+    oks = []
+    for case, a in sorted(keepers[msda.BACKWARD.name].inputs.items()):
+        shapes = a['spatial_shapes']
+        oks.append(compare_backward(
+            msda.BACKWARD, f'{case},{str(a["value"].dtype)[6:]}', a,
+            lambda a=a: msda.msda_backward_cuda(
+                a['value'], a['spatial_shapes'], a['loc'], a['weights'],
+                a['dout']),
+            lambda v, lo, w, s=shapes: msda.msdeform_attn_plain(v, s, lo, w),
+            (a['value'], a['loc'], a['weights'])))
+    a = keepers[latent_render.FIRST_HIT_BACKWARD.name].inputs['encoder']
+    geo = (a['grids'], a['radial_norm'], a['steps'])
+    oks.append(compare_backward(
+        latent_render.FIRST_HIT_BACKWARD, 'encoder', a,
+        lambda: (latent_render.ray_first_hit_backward_cuda(
+            a['occ'], *geo, a['act'], a['g']),),
+        lambda o: latent_render.ray_first_hit_plain(o, *geo, a['act']),
+        (a['occ'],)))
+    a = keepers[latent_render.AGGREGATE_BACKWARD.name].inputs['encoder']
+    geo = (a['grids'], a['radial_norm'], a['steps'])
+    rest = (a['c_r'], a['zdim'], a['eps'])
+    oks.append(compare_backward(
+        latent_render.AGGREGATE_BACKWARD, 'encoder', a,
+        lambda: (latent_render.ray_aggregate_backward_cuda(
+            a['fused_map'], *geo, *rest, a['g']),),
+        lambda fm: latent_render.ray_aggregate_plain(fm, *geo, *rest),
+        (a['fused_map'],)))
+    keepers.clear()
+    if not all(oks):
+        raise RuntimeError('a backward kernel disagrees with its plain '
+                           'version')
+
+    # two timed steps, then the forward alone as the step runs it (autograd
+    # on, activations saved), its graph freed without a backward
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        metrics = step(tr_batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise RuntimeError('non-finite train metrics in the timed steps')
+    fwd = []
+    tr_model.train()
+    for _ in range(2):
+        t0 = time.perf_counter()
+        losses = tr_model(tr_batch, generator=step.generator,
+                          gumbel_generator=step.generator,
+                          train_frame_gate=step.frame_gate())
+        torch.cuda.synchronize()
+        fwd.append(time.perf_counter() - t0)
+        del losses
+    st, ft = sum(times) / len(times), sum(fwd) / len(fwd)
+    print(f'train step (vidar_base bf16 compute, f32 params, bs {bs}, {q}+1 '
+          f'frames x {cams} cams {ih}x{iw}, 3 futures, {pts} GT points): '
+          f'{" ".join(f"{t:.4f}" for t in times)} s -> {st:.4f} s/it; '
+          f'forward alone (autograd on) '
+          f'{" ".join(f"{t:.4f}" for t in fwd)} s -> {ft:.4f} s '
+          f'(backward + update / forward {(st - ft) / ft:.3f}); '
+          f'peak memory {peak / 2**30:.2f} GiB; loss {metrics["loss"]:.5f}, '
+          f'grad_norm {metrics["grad_norm"]:.5g}, sca_overflow '
+          f'{metrics["sca_overflow"]} on {card}', flush=True)
 
     print(json.dumps({'kernels': results}))
     print(json.dumps({'ok': True, 'device': {

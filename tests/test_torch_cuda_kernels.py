@@ -128,3 +128,119 @@ def test_aggregate_kernel_matches_plain(dev, c_r, z, dtype):
     # two f32 sums over <= 64 waypoints in another order, then a division
     err = (got - want).abs().max().item()
     assert err <= 1e-4 * max(1.0, want.abs().max().item()), err
+
+
+def _plain_grads(fn, inputs, g):
+    """Autograd of a plain version in f32 (a bf16 input is upcast: the same
+    values, the gradient summed in f32): the gradient of <fn(*inputs), g>
+    against every input."""
+    leaves = [x.detach().float().requires_grad_() for x in inputs]
+    out = fn(*leaves)
+    grads = torch.autograd.grad(out, [x for x in leaves if x.requires_grad],
+                                g)
+    return list(grads)
+
+
+def _rel_err(got, want):
+    return ((got.float() - want.float()).abs().max() /
+            want.float().abs().max().clamp(min=1e-30)).item()
+
+
+@pytest.mark.parametrize('case', ['tsa', 'sca', 'sca_f32'])
+def test_msda_backward_kernel_matches_plain(dev, case):
+    rng = np.random.default_rng(4)
+    if case == 'tsa':
+        shapes, b, q, heads, dim, p = [(50, 50)], 2, 2500, 8, 32, 4
+    else:
+        shapes = [(29, 50), (15, 25), (8, 13), (4, 7)]
+        b, q, heads, dim, p = 6, 600, 8, 32, 8
+    v_len = sum(h * w for h, w in shapes)
+    dtype = torch.bfloat16 if case != 'sca_f32' else torch.float32
+    value = _t(rng.standard_normal((b, v_len, heads, dim)), dev, dtype)
+    # locations on and off the border: the validity rule is exercised
+    loc = _t(rng.uniform(-0.1, 1.1, (b, q, heads, len(shapes), p, 2)), dev)
+    w = _t(rng.uniform(size=(b, q, heads, len(shapes), p)), dev)
+    g = _t(rng.standard_normal((b, q, heads * dim)), dev)
+    before = msda.BACKWARD.launches
+    dv, dl, dw = msda.msda_backward_cuda(value, shapes, loc, w, g)
+    want = _plain_grads(
+        lambda v, lo, aw: msda.msdeform_attn_plain(v, shapes, lo, aw),
+        (value, loc, w), g)
+    torch.cuda.synchronize()
+    assert msda.BACKWARD.launches == before + 1
+    assert dv.dtype == value.dtype
+    # f32 atomic sums in another order; the kernel rounds dvalue of a bf16
+    # value to bf16 (2^-9 relative)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    assert _rel_err(dv, want[0]) <= tol
+    assert _rel_err(dl, want[1]) <= 1e-4
+    assert _rel_err(dw, want[2]) <= 1e-4
+
+
+@pytest.mark.parametrize('act', ['sigmoid', 'exp'])
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_first_hit_backward_kernel_matches_plain(dev, act, dtype):
+    rng = np.random.default_rng(5)
+    h = w = 60
+    occ = _t(2.0 * rng.standard_normal((1, h, w, 16)), dev, dtype)
+    grids, rn, steps = _geometry(h, w, 77, dev)
+    g = _t(rng.standard_normal((1, h * w, 16)), dev)
+    before = latent_render.FIRST_HIT_BACKWARD.launches
+    got = latent_render.ray_first_hit_backward_cuda(occ, grids, rn, steps,
+                                                    act, g)
+    (want,) = _plain_grads(
+        lambda o: latent_render.ray_first_hit_plain(o, grids, rn, steps,
+                                                    act), (occ,), g)
+    torch.cuda.synchronize()
+    assert latent_render.FIRST_HIT_BACKWARD.launches == before + 1
+    # f32 atomic sums over the rays crossing a cell in another order
+    # (bf16: the kernel rounds the gradient to bf16, 2^-9 relative)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    assert _rel_err(got, want) <= tol
+
+
+@pytest.mark.parametrize('c_r,z', [(16, 16), (8, 4)])
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_aggregate_backward_kernel_matches_plain(dev, c_r, z, dtype):
+    rng = np.random.default_rng(6)
+    h = w = 60
+    fmap = _t(np.concatenate([rng.standard_normal((1, h, w, c_r)),
+                              rng.uniform(0, 1, (1, h, w, z))], -1), dev,
+              dtype)
+    grids, rn, steps = _geometry(h, w, 64, dev)
+    g = _t(rng.standard_normal((1, h * w, c_r)), dev)
+    before = latent_render.AGGREGATE_BACKWARD.launches
+    got = latent_render.ray_aggregate_backward_cuda(fmap, grids, rn, steps,
+                                                    c_r, z, 1e-3, g)
+    (want,) = _plain_grads(
+        lambda f: latent_render.ray_aggregate_plain(f, grids, rn, steps, c_r,
+                                                    z, 1e-3), (fmap,), g)
+    torch.cuda.synchronize()
+    assert latent_render.AGGREGATE_BACKWARD.launches == before + 1
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    assert _rel_err(got, want) <= tol
+
+
+def test_train_path_uses_the_backward_kernels(dev):
+    """One autograd pass through each wrapper on the card launches its
+    backward kernel."""
+    rng = np.random.default_rng(7)
+    value = _t(rng.standard_normal((1, 64, 8, 32)), dev).requires_grad_()
+    loc = _t(rng.uniform(size=(1, 16, 8, 1, 4, 2)), dev).requires_grad_()
+    w = _t(rng.uniform(size=(1, 16, 8, 1, 4)), dev).requires_grad_()
+    before = msda.BACKWARD.launches
+    msda.msdeform_attn(value, [(8, 8)], loc, w).sum().backward()
+    assert msda.BACKWARD.launches == before + 1
+    assert value.grad is not None and loc.grad is not None
+    grids, rn, steps = _geometry(16, 16, 8, dev)
+    occ = _t(rng.standard_normal((1, 16, 16, 4)), dev).requires_grad_()
+    before = latent_render.FIRST_HIT_BACKWARD.launches
+    latent_render.ray_first_hit(occ, grids, rn, steps,
+                                'sigmoid').sum().backward()
+    assert latent_render.FIRST_HIT_BACKWARD.launches == before + 1
+    fmap = _t(rng.uniform(size=(1, 16, 16, 8)), dev).requires_grad_()
+    before = latent_render.AGGREGATE_BACKWARD.launches
+    latent_render.ray_aggregate(fmap, grids, rn, steps, 4, 4,
+                                1e-3).sum().backward()
+    assert latent_render.AGGREGATE_BACKWARD.launches == before + 1
+    assert occ.grad.abs().sum() > 0 and fmap.grad.abs().sum() > 0

@@ -64,9 +64,10 @@ def models():
     shapes = jax.eval_shape(lambda: jax_model.init(
         {'params': key, 'dropout': key}, jbatch, train=False))
     params = _random_params(shapes)
-    torch_model = ViDAR(**cfg)
+    torch_model = ViDAR(**cfg, device='cpu').eval()     # dropout off
     torch_model.load_state_dict(state_dict_from_jax(params), strict=True)
-    tbatch = make_synthetic_batch(np.random.default_rng(0), **SHAPES)
+    tbatch = make_synthetic_batch(np.random.default_rng(0), **SHAPES,
+                                  device='cpu')
     return cfg, jax_model, params, jbatch, torch_model, tbatch
 
 

@@ -1,4 +1,5 @@
-// Shared pieces of the latent-rendering ray kernels (K3, K4).
+// Shared pieces of the latent-rendering ray kernels (K3, K4 and their
+// backwards K6/K7, K8).
 //
 // Every float operation that the plain PyTorch version also performs is
 // written with the round-to-nearest intrinsics, so nvcc cannot contract it
@@ -62,6 +63,38 @@ __device__ __forceinline__ float sample(const T* __restrict__ map, int H,
                   __fmul_rn(to_f32(map[((iy0 + 1) * W + ix0 + 1) * CT + ch]),
                             __fmul_rn(wy1, wx1)));
   return v;
+}
+
+// Adjoint of `sample`: adds val * (corner weight) into channel `ch` of each
+// on-map corner of an f32 map gradient [H, W, CT] (atomically: many rays
+// cross one cell).
+__device__ __forceinline__ void scatter(float* __restrict__ dmap, int H,
+                                        int W, int CT, int ch, float gx,
+                                        float gy, float val) {
+  const float x =
+      __fmul_rn(__fsub_rn(__fmul_rn(__fadd_rn(gx, 1.f), (float)W), 1.f), 0.5f);
+  const float y =
+      __fmul_rn(__fsub_rn(__fmul_rn(__fadd_rn(gy, 1.f), (float)H), 1.f), 0.5f);
+  const float x0f = floorf(x);
+  const float y0f = floorf(y);
+  const int ix0 = (int)x0f;
+  const int iy0 = (int)y0f;
+  if (iy0 < -1 || iy0 > H - 1 || ix0 < -1 || ix0 > W - 1) return;
+  const float wx1 = __fsub_rn(x, x0f);
+  const float wy1 = __fsub_rn(y, y0f);
+  const float wx0 = __fsub_rn(1.f, wx1);
+  const float wy0 = __fsub_rn(1.f, wy1);
+  if (iy0 >= 0 && ix0 >= 0)
+    atomicAdd(dmap + (iy0 * W + ix0) * CT + ch, val * __fmul_rn(wy0, wx0));
+  if (iy0 >= 0 && ix0 + 1 < W)
+    atomicAdd(dmap + (iy0 * W + ix0 + 1) * CT + ch,
+              val * __fmul_rn(wy0, wx1));
+  if (iy0 + 1 < H && ix0 >= 0)
+    atomicAdd(dmap + ((iy0 + 1) * W + ix0) * CT + ch,
+              val * __fmul_rn(wy1, wx0));
+  if (iy0 + 1 < H && ix0 + 1 < W)
+    atomicAdd(dmap + ((iy0 + 1) * W + ix0 + 1) * CT + ch,
+              val * __fmul_rn(wy1, wx1));
 }
 
 }  // namespace ray

@@ -9,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from .structures import ViDARBatch
 
 
@@ -39,10 +40,12 @@ def _ring_lidar2img(num_cams: int, img_h: int, img_w: int) -> np.ndarray:
 
 def make_synthetic_batch(rng: np.random.Generator, *, bs=1, queue_length=4,
                          future_length=3, num_cams=6, img_h=96, img_w=160,
-                         max_points=512, speed=2.0, device=None
+                         max_points=512, speed=2.0, device='cuda'
                          ) -> ViDARBatch:
     """A self-consistent batch: a forward-moving ego, cameras in a ring and
-    GT points on random obstacles, placed on ``device``."""
+    GT points on random obstacles, placed on ``device`` (the card unless
+    the caller asks for the CPU)."""
+    device = resolve_device(device)
     t = queue_length + 1
     tq = queue_length + 1 + future_length
 

@@ -1,4 +1,5 @@
-"""Model modules of the port (eval path of the ViDAR forecast)."""
+"""Model modules of the port: the ViDAR forecast and its pre-training
+forward."""
 
 from .vidar import ViDAR
 

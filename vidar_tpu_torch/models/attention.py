@@ -1,5 +1,6 @@
-"""Deformable attention modules (port of vidar_tpu/models/attention.py),
-eval path only. All three reduce to ``ops.msda.msdeform_attn``:
+"""Deformable attention modules (port of vidar_tpu/models/attention.py).
+All three reduce to ``ops.msda.msdeform_attn``, and each drops out its
+output projection (rate 0.1) under ``train()``:
 
 * ``TemporalSelfAttention``: BEV self-attention over the 2-slot queue
   [prev BEV, current query], the queue folded into the batch and averaged.
@@ -19,7 +20,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.msda import msdeform_attn
-from .layers import Dense
+from .layers import DROPOUT, Dense
 
 
 class _DeformProj(nn.Module):
@@ -60,6 +61,7 @@ class TemporalSelfAttention(nn.Module):
                                 device=device)
         self.output_proj = Dense(embed_dims, embed_dims, dtype=dtype,
                                  device=device)
+        self.drop = nn.Dropout(DROPOUT)
 
     def forward(self, query, value, ref_2d_pair, bev_h: int, bev_w: int,
                 query_pos):
@@ -88,7 +90,7 @@ class TemporalSelfAttention(nn.Module):
         loc = ref + offsets / normalizer
         out = msdeform_attn(value_p, [(bev_h, bev_w)], loc, weights)
         out = out.reshape(bs, nq, len_bev, self.embed_dims).mean(dim=1)
-        return self.output_proj(out.to(query.dtype)) + identity
+        return self.drop(self.output_proj(out.to(query.dtype))) + identity
 
 
 def _deform_offsets_weights(proj, query, h: int, lv: int, p: int):
@@ -169,6 +171,7 @@ class SpatialCrossAttention(nn.Module):
             deform_num_points, dtype=dtype, device=device)
         self.output_proj = Dense(embed_dims, embed_dims, dtype=dtype,
                                  device=device)
+        self.drop = nn.Dropout(DROPOUT)
 
     def forward(self, query, value, spatial_shapes: Sequence[Tuple[int, int]],
                 compact):
@@ -200,7 +203,7 @@ class SpatialCrossAttention(nn.Module):
         slots = cam_out.sum(dim=1)
         count = visible.float().sum(dim=1).clamp(min=1.0)
         slots = slots / count[..., None].to(slots.dtype)
-        return self.output_proj(slots.to(query.dtype)) + identity
+        return self.drop(self.output_proj(slots.to(query.dtype))) + identity
 
 
 class PredictionMSDeformableAttention(nn.Module):
@@ -217,6 +220,7 @@ class PredictionMSDeformableAttention(nn.Module):
                                 num_points, dtype=dtype, device=device)
         self.output_proj = Dense(embed_dims, embed_dims, dtype=dtype,
                                  device=device)
+        self.drop = nn.Dropout(DROPOUT)
 
     def forward(self, query, value, reference_points,
                 spatial_shapes: Sequence[Tuple[int, int]], query_pos):
@@ -240,4 +244,4 @@ class PredictionMSDeformableAttention(nn.Module):
         loc = (reference_points[:, :, None, :, None, :] +
                offsets / normalizer[None, None, None, :, None, :])
         out = msdeform_attn(value_p, list(spatial_shapes), loc, weights)
-        return self.output_proj(out.to(query.dtype)) + identity
+        return self.drop(self.output_proj(out.to(query.dtype))) + identity

@@ -1,7 +1,6 @@
-"""BEVFormer spatiotemporal encoder (port of vidar_tpu/models/encoder.py),
-eval path: TSA -> LN -> SCA -> LN -> [latent rendering] -> FFN -> LN per
-layer, with the TSA queue's current slot refreshed after the latent-render
-layers."""
+"""BEVFormer spatiotemporal encoder (port of vidar_tpu/models/encoder.py):
+TSA -> LN -> SCA -> LN -> [latent rendering] -> FFN -> LN per layer, with
+the TSA queue's current slot refreshed after the latent-render layers."""
 
 from __future__ import annotations
 
@@ -71,6 +70,27 @@ def point_sampling(ref_3d: torch.Tensor, pc_range: Sequence[float],
     ref_cam = torch.stack([x, y], -1).permute(1, 0, 3, 2, 4)
     bev_mask = mask.permute(1, 0, 3, 2)
     return ref_cam, bev_mask
+
+
+def sca_overflow_count(lidar2img: torch.Tensor, img_hw: Tuple[int, int],
+                       bev_h: int, bev_w: int, pc_range: Sequence[float],
+                       capacity_ratio: float,
+                       num_points_in_pillar: int = NUM_POINTS_IN_PILLAR
+                       ) -> torch.Tensor:
+    """The visible queries the SCA's static capacity drops, worst case over
+    every (frame, camera) of lidar2img [..., cams, 4, 4]: max(visible - cap,
+    0) as an int32 scalar, 0 for a ratio outside (0, 1)
+    (vidar_tpu/models/encoder.py:105-132)."""
+    if not 0 < capacity_ratio < 1:
+        return torch.zeros((), dtype=torch.int32, device=lidar2img.device)
+    cap = int(bev_h * bev_w * capacity_ratio)
+    ref_3d = torch.from_numpy(reference_points_3d(
+        bev_h, bev_w, pc_range[5] - pc_range[2], num_points_in_pillar)).to(
+            lidar2img.device)
+    l2i = lidar2img.reshape((-1,) + tuple(lidar2img.shape[-3:]))
+    _, bev_mask = point_sampling(ref_3d, pc_range, l2i, img_hw)
+    vis = bev_mask.any(dim=-1).sum(dim=2)            # [cams, bs*frames]
+    return torch.clamp(vis.max() - cap, min=0).to(torch.int32)
 
 
 class BEVFormerLayer(nn.Module):

@@ -87,8 +87,14 @@ class LayerNorm(nn.Module):
                             self.bias, 1e-6)
 
 
+# dropout rate of the FFNs and attention outputs (reference config
+# ffn_dropout=0.1; vidar_tpu/models/layers.py:95,97, attention.py:151,420,479)
+DROPOUT = 0.1
+
+
 class FFN(nn.Module):
-    """mmcv FFN at eval: identity + fc2(relu(fc1(x)))."""
+    """mmcv FFN: identity + drop(fc2(drop(relu(fc1(x))))); the dropouts act
+    under ``train()`` only."""
 
     def __init__(self, feedforward_channels: int, embed_dims: int,
                  dtype=None, device=None):
@@ -97,9 +103,10 @@ class FFN(nn.Module):
                                device=device)
         self.fc2 = TorchLinear(feedforward_channels, embed_dims, dtype=dtype,
                                device=device)
+        self.drop = nn.Dropout(DROPOUT)
 
     def forward(self, x):
-        return x + self.fc2(torch.relu(self.fc1(x)))
+        return x + self.drop(self.fc2(self.drop(torch.relu(self.fc1(x)))))
 
 
 class LearnedPositionalEncoding(nn.Module):

@@ -114,13 +114,18 @@ class Bottleneck(nn.Module):
 
 class ResNet(nn.Module):
     """ResNet returning the NHWC maps of stages 2-4 (out_indices (1, 2, 3)),
-    stage strides (1, 2, 2, 2)."""
+    stage strides (1, 2, 2, 2). ``frozen_stages`` cuts the gradient after
+    the stem (when >= 0) and after each of the first ``frozen_stages``
+    stages, as the JAX package's ``stop_gradient``s do
+    (vidar_tpu/models/resnet.py:246-274); the frozen weights keep their
+    parameters and receive no gradient."""
 
     def __init__(self, depth: int = 101,
                  stage_with_dcn: Tuple[bool, ...] = (False, False, True,
                                                      True),
-                 dtype=None, device=None):
+                 frozen_stages: int = 1, dtype=None, device=None):
         super().__init__()
+        self.frozen_stages = frozen_stages
         kw = dict(dtype=dtype, device=device)
         self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, use_bias=False,
                             **kw)
@@ -145,10 +150,14 @@ class ResNet(nn.Module):
         h = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         h = torch.relu(self.bn1(self.conv1(h)))
         h = F.max_pool2d(h, 3, stride=2, padding=1)
+        if self.frozen_stages >= 0:
+            h = h.detach()
         outs = []
         for stage, names in enumerate(self.stages):
             for name in names:
                 h = getattr(self, name)(h)
+            if stage + 1 <= self.frozen_stages:
+                h = h.detach()
             if stage > 0:
                 outs.append(h.permute(0, 2, 3, 1))
         return outs

@@ -1,19 +1,27 @@
-"""ViDAR: visual point cloud forecasting (port of the eval entry points of
-vidar_tpu/models/vidar.py). ``ForecastRunner`` drives the four phases:
-``backbone_forward`` once over every (frame, camera) image,
-``encode_single`` once per history frame, ``rollout_single`` once per
-future frame, then ``decode_from_features``."""
+"""ViDAR: visual point cloud forecasting (port of vidar_tpu/models/vidar.py).
+
+Serving: ``ForecastRunner`` drives the four phases, ``backbone_forward``
+once over every (frame, camera) image, ``encode_single`` once per history
+frame, ``rollout_single`` once per future frame, then
+``decode_from_features``. Training: ``forward(batch)`` returns the loss
+dict of the pre-training step (vidar.py:315-389, ``train=True``);
+``TrainStep`` (``vidar_tpu_torch.train``) takes its gradient.
+"""
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
+from ..device import resolve_device
 from .fpn import FPN
+from .grid_mask import grid_mask
 from .resnet import ResNet
 from .transformer import BEVEncoderHead
 from .vidar_head import ViDARHead
@@ -26,10 +34,23 @@ def bev_cell_grids(bev_h: int, bev_w: int) -> np.ndarray:
     return np.stack([gx.reshape(-1), gy.reshape(-1)], -1)
 
 
+@contextlib.contextmanager
+def eval_mode(module: nn.Module):
+    """Dropout off inside (serving, and the frozen history encode of a
+    train step, run deterministic); the module's mode is restored after."""
+    was = module.training
+    module.eval()
+    try:
+        yield
+    finally:
+        module.train(was)
+
+
 class ViDAR(nn.Module):
-    """Takes the keyword configuration of ``vidar_tpu.configs`` presets
-    (training-only keys are accepted and unused), plus ``dtype`` (compute
-    dtype, None = f32) and ``device``."""
+    """Takes the keyword configuration of ``vidar_tpu.configs`` presets, plus
+    ``use_grid_mask``, ``dtype`` (compute dtype, None = f32) and ``device``
+    (the card unless the caller asks for the CPU). ``supervise_all_future``
+    is accepted with the preset and unused: ``TrainStep`` takes it."""
 
     def __init__(self, embed_dims: int = 256, bev_h: int = 200,
                  bev_w: int = 200,
@@ -51,18 +72,23 @@ class ViDAR(nn.Module):
                  decoder_num_layers: int = 3, encoder_num_layers: int = 6,
                  latent_render_lids: Tuple[int, ...] = (2,),
                  latent_render_cfg: Optional[dict] = None,
-                 sca_capacity_ratio: float = 0.5,
-                 dtype: Optional[torch.dtype] = None, device=None):
+                 sca_capacity_ratio: float = 0.5, use_grid_mask: bool = True,
+                 dtype: Optional[torch.dtype] = None, device='cuda'):
         super().__init__()
+        device = resolve_device(device)
         self.embed_dims, self.bev_h, self.bev_w = embed_dims, bev_h, bev_w
         self.pc_range = tuple(pc_range)
+        self.future_pred_frame_num = future_pred_frame_num
         self.test_future_frame_num = test_future_frame_num
         self.history_queue_length = history_queue_length
         self.pred_history_frame_num = pred_history_frame_num
         self.decoder_num_layers = decoder_num_layers
+        self.sca_capacity_ratio = sca_capacity_ratio
+        self.use_grid_mask = use_grid_mask
         kw = dict(dtype=dtype, device=device)
         self.img_backbone = ResNet(depth=backbone_depth,
-                                   stage_with_dcn=tuple(backbone_dcn), **kw)
+                                   stage_with_dcn=tuple(backbone_dcn),
+                                   frozen_stages=frozen_stages, **kw)
         self.img_neck = FPN((512, 1024, 2048), out_channels=embed_dims,
                             **kw)
         self.pts_bbox_head = BEVEncoderHead(
@@ -78,7 +104,10 @@ class ViDAR(nn.Module):
             history_queue_length=history_queue_length,
             pred_history_frame_num=pred_history_frame_num,
             pred_future_frame_num=pred_future_frame_num,
-            ray_grid_num=ray_grid_num, ray_grid_step=ray_grid_step,
+            per_frame_loss_weight=per_frame_loss_weight,
+            loss_weight=loss_weight, ray_grid_num=ray_grid_num,
+            ray_grid_step=ray_grid_step, use_ce_loss=use_ce_loss,
+            use_dist_loss=use_dist_loss, use_dense_loss=use_dense_loss,
             decoder_num_layers=decoder_num_layers, **kw)
 
     @torch.no_grad()
@@ -142,3 +171,111 @@ class ViDAR(nn.Module):
         return self.future_pred_head.decode_pointcloud(
             sigma_cur, gt_points, gt_tindex, cur2ref, ref2cur,
             num_rollout=num_future + 1)
+
+    # ----------------------------------------------------------- training
+
+    def extract_feats(self, images):
+        """[bs, T, cams, H, W, 3] -> list of [bs, T, cams, h, w, C]: one
+        batched backbone pass (serving, and the no-gradient frames)."""
+        bs, t, cams, h, w, _ = images.shape
+        feats = self.backbone_forward(images.reshape(bs * t * cams, h, w, 3))
+        return [f.reshape((bs, t, cams) + tuple(f.shape[1:])) for f in feats]
+
+    def extract_feats_cam_seq(self, images):
+        """[bs, cams, H, W, 3] -> list of [bs, cams, h, w, C] for the
+        gradient-carrying frame: one checkpointed backbone pass per camera,
+        so a camera's activations are recomputed in its own backward and
+        only one camera's are alive at a time (vidar.py:134-154)."""
+        per_cam = [checkpoint(self.backbone_forward, images[:, c],
+                              use_reentrant=False)
+                   for c in range(images.shape[1])]
+        return [torch.stack(level, dim=1) for level in zip(*per_cam)]
+
+    def encode_history(self, feats, batch, img_hw, num_history: int):
+        """The frozen, deterministic recurrence over the first
+        ``num_history`` frames of feats (list of [bs, T, cams, h, w, C])
+        -> prev_bev [bs, N, C] f32, without gradient."""
+        bs = batch.images.shape[0]
+        prev_bev = torch.zeros(bs, self.bev_h * self.bev_w, self.embed_dims,
+                               dtype=torch.float32,
+                               device=batch.images.device)
+        with torch.no_grad(), eval_mode(self.pts_bbox_head):
+            for f in range(num_history):
+                prev_bev = self.encode_single(
+                    [x[:, f] for x in feats], batch.can_bus[:, f],
+                    batch.shift[:, f], batch.rotate_angle[:, f],
+                    batch.lidar2img[:, f], prev_bev,
+                    batch.prev_bev_exists[:, f], img_hw)
+        return prev_bev
+
+    def rollout(self, ref_bev, batch, num_future: int,
+                train_frame_gate: Optional[Sequence[float]] = None):
+        """Autoregressive rollout from ref_bev [bs, N, C] ->
+        [num_future, layers, bs, N, C]; a future whose gate is 0 is rolled
+        out without gradient, carry included (vidar.py:263)."""
+        if batch.future2ref.shape[1] < num_future + 1:
+            raise ValueError(
+                f'batch future chain has {batch.future2ref.shape[1] - 1} '
+                f'future frames but the rollout needs {num_future}')
+        dims = list(self.future_pred_head.can_bus_dims)
+        prev_feats = ref_bev[:, None]
+        ref2hist = batch.ref2cur[:, self.history_queue_length][:, None]
+        preds = []
+        for fi in range(1, num_future + 1):
+            pred, ref2hist = self.rollout_single(
+                prev_feats, ref2hist, batch.future2ref[:, fi],
+                batch.ref2future[:, fi], batch.future_can_bus[:, fi][:, dims])
+            if train_frame_gate is not None and \
+                    float(train_frame_gate[fi - 1]) <= 0:
+                pred = pred.detach()
+            preds.append(pred)
+            prev_feats = pred[-1][:, None]
+        return torch.stack(preds)
+
+    def forward(self, batch, *,
+                generator: Optional[torch.Generator] = None,
+                gumbel_generator: Optional[torch.Generator] = None,
+                train_frame_gate: Optional[Sequence[float]] = None):
+        """The train forward (vidar.py:315-389, ``train=True``): grid-mask
+        the current frame (``generator``), encode the history frozen, the
+        current frame with gradient, roll out ``future_pred_frame_num``
+        futures under ``train_frame_gate`` and return the loss dict, the
+        dense loss decoded with Gumbel noise from ``gumbel_generator``
+        (None: argmax). Dropout follows ``train()``/``eval()``. Serving
+        goes through ``ForecastRunner``."""
+        img_hw = tuple(batch.images.shape[3:5])
+        t = batch.images.shape[1]
+        head = self.future_pred_head
+        images = batch.images
+        cur = images[:, -1]
+        if self.use_grid_mask:
+            # the current frame's cameras only: history features come from
+            # the reference's eval mode, where GridMask is off (vidar.py:
+            # 325-333)
+            bs, cams, h, w, c = cur.shape
+            cur = grid_mask(generator, cur.reshape(bs * cams, h, w, c)
+                            ).reshape(bs, cams, h, w, c)
+        with torch.no_grad():
+            hist_feats = self.extract_feats(images[:, :-1])
+        cur_feats = self.extract_feats_cam_seq(cur)
+        prev_bev = self.encode_history(hist_feats, batch, img_hw, t - 1)
+        ref_bev = self.encode_single(
+            cur_feats, batch.can_bus[:, t - 1], batch.shift[:, t - 1],
+            batch.rotate_angle[:, t - 1], batch.lidar2img[:, t - 1],
+            prev_bev, batch.prev_bev_exists[:, t - 1], img_hw)
+        num_future = self.future_pred_frame_num
+        layers = self.decoder_num_layers
+        next_feats = ref_bev[None, None].expand(1, layers, *ref_bev.shape)
+        if num_future > 0:
+            preds = self.rollout(ref_bev, batch, num_future,
+                                 train_frame_gate)
+            next_feats = torch.cat([next_feats, preds])
+        # [frames, layers, channels, bs, N, Z]; the last layer, channel-major
+        sigma = head.forward_head(next_feats)
+        # frame 0 opens the queue: its own flag is excluded (vidar.py:372)
+        full_prev = batch.prev_bev_exists[:, 1:].all()
+        return head.loss(sigma[:, -1].permute(1, 0, 2, 3, 4),
+                         batch.gt_points, batch.gt_tindex, batch.cur2ref,
+                         batch.ref2cur, num_rollout=num_future + 1,
+                         full_prev_bev_exists=full_prev,
+                         generator=gumbel_generator)

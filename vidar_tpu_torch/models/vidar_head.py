@@ -1,16 +1,18 @@
-"""ViDAR future-prediction head (port of the eval methods of
-vidar_tpu/models/vidar_head.py): decoder-input assembly and one
-autoregressive step (``predict_next``), the per-layer multi-frame heads
-(``forward_head``) and the argmax point-cloud decode
-(``decode_pointcloud``)."""
+"""ViDAR future-prediction head (port of vidar_tpu/models/vidar_head.py):
+decoder-input assembly and one autoregressive step (``predict_next``), the
+per-layer multi-frame heads (``forward_head``), the training losses
+(``loss``: ray cross entropy per channel and the dense chamfer loss) and
+the argmax point-cloud decode (``decode_pointcloud``)."""
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
+from ..ops.chamfer import chamfer_distance_masked
 from . import ray_loss
 from .layers import MLP, LearnedPositionalEncoding, TorchLinear
 from .vidar_decoder import PredictionDecoder
@@ -26,10 +28,20 @@ class ViDARHead(nn.Module):
                  can_bus_dims: Tuple[int, ...] = (0, 1, 2, 17),
                  history_queue_length: int = 4,
                  pred_history_frame_num: int = 3,
-                 pred_future_frame_num: int = 1, ray_grid_num: int = 512,
-                 ray_grid_step: float = 1.0, decoder_num_layers: int = 3,
-                 dtype=None, device=None):
+                 pred_future_frame_num: int = 1,
+                 per_frame_loss_weight: Sequence[float] = (0.2, 0.4, 0.6,
+                                                           1.0, 1.2),
+                 loss_weight=((1,), (1,), (1,), (1,), (0,)),
+                 ray_grid_num: int = 512, ray_grid_step: float = 1.0,
+                 use_ce_loss: bool = True, use_dist_loss: bool = False,
+                 use_dense_loss: bool = True, dense_loss_weight: float = 1.0,
+                 decoder_num_layers: int = 3, dtype=None, device=None):
         super().__init__()
+        self.per_frame_loss_weight = tuple(per_frame_loss_weight)
+        self.loss_weight = np.asarray(loss_weight, np.float32)
+        self.use_ce_loss, self.use_dist_loss = use_ce_loss, use_dist_loss
+        self.use_dense_loss = use_dense_loss
+        self.dense_loss_weight = dense_loss_weight
         self.embed_dims, self.bev_h, self.bev_w = embed_dims, bev_h, bev_w
         self.pc_range = tuple(pc_range)
         self.num_pred_height = num_pred_height
@@ -92,10 +104,15 @@ class ViDARHead(nn.Module):
 
     def _channel_frame_transforms(self, cur2ref, ref2cur, channel: int,
                                   num_rollout: int):
-        """src->tgt 4x4s [bs, V, 4, 4] for one prediction channel."""
+        """src->tgt 4x4s [bs, V, 4, 4] for one prediction channel. Both
+        windows are clamped into the chain as ``lax.dynamic_slice_in_dim``
+        clamps them in the JAX package: a late channel whose window would
+        run past the chain's end reads its last ``num_rollout`` frames."""
         hq = self.history_queue_length
-        start = hq - self.pred_history_frame_num + channel
+        last = cur2ref.shape[1] - num_rollout
+        start = min(max(hq - self.pred_history_frame_num + channel, 0), last)
         src = cur2ref[:, start:start + num_rollout]
+        hq = min(hq, last)
         tgt = ref2cur[:, hq:hq + num_rollout]
         return torch.einsum('bvij,bvjk->bvik', src, tgt)
 
@@ -118,6 +135,115 @@ class ViDARHead(nn.Module):
         origins = torch.einsum('j,bvjk->bvk', origin_h, src_to_tgt)[..., :3]
         frame_idx = torch.where(valid, v_idx, torch.full_like(v_idx, -1))
         return pts, frame_idx, origins
+
+    def loss(self, sigma_per_channel, gt_points, gt_tindex, cur2ref, ref2cur,
+             num_rollout: int, full_prev_bev_exists,
+             generator: Optional[torch.Generator] = None):
+        """The multi-channel ray losses (vidar_head.py:189-265).
+
+        sigma_per_channel [channels, V, bs, N, Z]: the last decoder layer's
+        prediction per channel; full_prev_bev_exists: [] bool, gates the
+        auxiliary channels; generator: Gumbel noise of the dense loss
+        (None: argmax). Returns scalar losses keyed like the reference
+        (``frame.{ch}.regularization.loss.loss``, ...)."""
+        zdim = self.num_pred_height
+        bs = gt_points.shape[0]
+        lw = self.loss_weight
+        cur = self.pred_history_frame_num
+        dev = sigma_per_channel.device
+        full_prev = torch.as_tensor(full_prev_bev_exists, device=dev)
+        sf = (self.pc_range[3] - self.pc_range[0]) / self.bev_w
+        losses = {}
+        for ch in range(self.pred_frame_num):
+            v = sigma_per_channel.shape[1]
+            sigma_vol = sigma_per_channel[ch].permute(1, 0, 3, 2).reshape(
+                bs, v, zdim, self.bev_h, self.bev_w)
+            s2t = self._channel_frame_transforms(cur2ref, ref2cur, ch,
+                                                 num_rollout)
+            pts, frame_idx, origins = self._reanchor_points(
+                gt_points, gt_tindex, s2t, ch, num_rollout)
+            gt_grids = ray_loss.coords_to_voxel_grids(
+                pts, self.bev_h, self.bev_w, zdim, self.pc_range)
+            origin_grids = ray_loss.coords_to_voxel_grids(
+                origins, self.bev_h, self.bev_w, zdim, self.pc_range)
+            rays = ray_loss.ray_waypoint_features(
+                sigma_vol, origin_grids, gt_grids, frame_idx,
+                self.ray_grid_num, self.ray_grid_step)
+            # per-ray weight: the frame row's weight; the auxiliary channels
+            # supervise rollout frame 0 only (vidar_head.py:234-242)
+            if ch != cur:
+                frame_w = np.zeros((len(lw),), np.float32)
+                frame_w[0] = 1.0
+            else:
+                frame_w = lw[:, 0]
+            frame_w = torch.from_numpy(frame_w[:num_rollout]).to(dev)
+            ray_w = torch.where(
+                frame_idx >= 0, frame_w[frame_idx.clamp(0, num_rollout - 1)],
+                torch.zeros((), device=dev))
+            ray_w = ray_w * rays.ray_valid.float()
+            gate = (full_prev | (ch == cur)).float()
+            scale = self.per_frame_loss_weight[ch] * gate
+            if self.use_ce_loss:
+                ce = ray_loss.ray_ce_loss(rays.feats, ray_w)
+                losses[f'frame.{ch}.regularization.loss.loss'] = ce * scale
+            if self.use_dist_loss:
+                dist = ray_loss.gumbel_softmax_distance(
+                    rays.feats, rays.lengths, generator)
+                dist_l = (dist - rays.lengths[..., 0]).abs() * sf
+                total_w = torch.clamp(ray_w.sum(), min=1.0)
+                losses[f'frame.{ch}.dist.loss.loss'] = (
+                    (dist_l * ray_w).sum() / total_w * scale)
+            if self.use_dense_loss and ch == cur:
+                dense = self._dense_voxel_loss(sigma_vol, gt_grids,
+                                               frame_idx, origin_grids,
+                                               frame_w, generator)
+                losses[f'frame.{ch}.loss.dense_voxel.loss'] = dense * scale
+        return losses
+
+    def _dense_voxel_loss(self, sigma_vol, gt_grids, frame_idx,
+                          origin_grids, frame_w, generator):
+        """Chamfer loss between the point cloud decoded along rays to the
+        centres of a 4x-downsampled voxel grid and the GT points, in 0.1
+        grid units (vidar_head.py:267-322)."""
+        bs, v, zdim, h, w = sigma_vol.shape
+        ds = 4
+        vh, vw, vz = h // ds, w // ds, zdim // ds
+        zs = (np.arange(vz) + 0.5) / vz * zdim
+        ys = (np.arange(vh) + 0.5) / vh * h
+        xs = (np.arange(vw) + 0.5) / vw * w
+        gz, gy, gx = np.meshgrid(zs, ys, xs, indexing='ij')
+        vox = np.stack([gx.reshape(-1), gy.reshape(-1), gz.reshape(-1)], -1)
+        dev = sigma_vol.device
+        vox = torch.from_numpy(vox.astype(np.float32)).to(dev)
+        nvox = vox.shape[0]
+        vox = vox[None].expand(bs, nvox, 3)
+        inner = ((gt_grids[..., 0] > 0) & (gt_grids[..., 0] < w - 1) &
+                 (gt_grids[..., 1] > 0) & (gt_grids[..., 1] < h - 1) &
+                 (gt_grids[..., 2] > 0) & (gt_grids[..., 2] < zdim - 1))
+        all_valid = torch.ones(nvox, dtype=torch.bool, device=dev)
+        loss = torch.zeros((), device=dev)
+        for f in range(v):
+            fidx = torch.full((bs, nvox), f, dtype=torch.int64, device=dev)
+            rays = ray_loss.ray_waypoint_features(
+                sigma_vol, origin_grids, vox, fidx, self.ray_grid_num,
+                self.ray_grid_step)
+            dist = ray_loss.gumbel_softmax_distance(
+                rays.feats[..., 1:], rays.lengths[..., 1:], generator)
+            origin_f = origin_grids[:, f]
+            r = vox - origin_f[:, None, :]
+            r_norm = r / torch.sqrt(torch.clamp(
+                (r ** 2).sum(-1, keepdim=True), min=1e-12))
+            pred_pcd = origin_f[:, None, :] + r_norm * dist[..., None]
+            gt_mask = (frame_idx >= 0) & (frame_idx == f) & inner
+            for b in range(bs):
+                p = (pred_pcd[b] - origin_f[b]) * 0.1
+                g = (gt_grids[b] - origin_f[b]) * 0.1
+                l_src, l_dst, _, _ = chamfer_distance_masked(
+                    p, g, all_valid, gt_mask[b])
+                has_gt = gt_mask[b].any().float()
+                loss = loss + (l_src + l_dst) / 2.0 * frame_w[f] * has_gt
+        denom = torch.clamp(frame_w.sum(), min=1e-6) * bs
+        return loss / denom * self.dense_loss_weight
 
     def decode_pointcloud(self, sigma_cur, gt_points, gt_tindex, cur2ref,
                           ref2cur, num_rollout: int):

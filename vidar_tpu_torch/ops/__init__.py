@@ -1,2 +1,3 @@
-"""Tensor ops of the port: bilinear helpers and the four kernel-backed ops
-(``msda``, ``dcn``, ``latent_render``), each with its plain PyTorch version."""
+"""Tensor ops of the port: bilinear helpers, the masked chamfer distance and
+the kernel-backed ops (``msda``, ``dcn``, ``latent_render``), each with its
+plain PyTorch version and its gradient."""

@@ -11,6 +11,9 @@ Each kernel's wrapper owns a :class:`KernelCounter`: ``launches`` counts
 launches of the kernel itself (never of its plain PyTorch version), and
 ``on_launch``, when set, sees every launch's arguments, so a script can keep
 the inputs a real run gave the kernel.
+
+The backward kernels (K5-K8) scatter with f32 ``atomicAdd`` into a gradient
+buffer the wrapper zeroes; the order of those sums varies from run to run.
 """
 
 from __future__ import annotations
@@ -49,6 +52,18 @@ SIGNATURES = {
     # B, H, W, CT, c_r, Z, N, G, eps, stream
     'ray_aggregate_forward': (_P, _I, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    # value, value_is_bf16, shapes, level_start, loc, weights, dout,
+    # dvalue (f32), dloc, dweights, B, V, Q, heads, dim, L, P, stream
+    'msda_backward': (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                      _I, _I, _I, _I, _I, _I, _I, _P),
+    # occ, occ_is_bf16, grids, radial, steps, gout, docc (f32),
+    # B, H, W, Z, N, G, act_exp, stream
+    'ray_first_hit_backward': (_P, _I, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _I, _P),
+    # fmap, fmap_is_bf16, grids, radial, steps, gout, dfmap (f32),
+    # B, H, W, CT, c_r, Z, N, G, eps, stream
+    'ray_aggregate_backward': (_P, _I, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
 }
 
 _lock = threading.Lock()

@@ -16,7 +16,12 @@ the centre cell) and ``steps`` [G] the step lengths.
   feature channel k weighted by probability channel k // (c_r / Z) ->
   [B, N, c_r] f32 (spec: ``_aggregate_xla``, :310-340).
 
-CUDA tensors launch the kernels; CPU tensors run the plain versions.
+CUDA tensors run ``torch.autograd.Function``s whose forwards are K3/K4 and
+whose backwards are K6/K7 (``csrc/ray_first_hit_bwd.cu``, one kernel for
+both TPU kernels) and K8 (``csrc/ray_aggregate_bwd.cu``); only the map gets
+a gradient, the geometry is constant (as in the JAX ``custom_vjp``s,
+latent_rendering.py:226-298, :397-468). CPU tensors run the plain versions,
+and autograd differentiates those.
 """
 
 from __future__ import annotations
@@ -32,6 +37,16 @@ FIRST_HIT = KernelCounter(
 AGGREGATE = KernelCounter(
     'ray_aggregate_forward', source='vidar_tpu_torch/csrc/ray_aggregate.cu',
     replaces='vidar_tpu/ops/latent_render_pallas.py:379 (ray_agg_fused)')
+FIRST_HIT_BACKWARD = KernelCounter(
+    'ray_first_hit_backward',
+    source='vidar_tpu_torch/csrc/ray_first_hit_bwd.cu',
+    replaces='vidar_tpu/ops/latent_render_pallas.py:526 (ray_prob_dlogit), '
+             ':657 (ray_prob_scatter)')
+AGGREGATE_BACKWARD = KernelCounter(
+    'ray_aggregate_backward',
+    source='vidar_tpu_torch/csrc/ray_aggregate_bwd.cu',
+    replaces='vidar_tpu/ops/latent_render_pallas.py:334 (ray_agg_fused_bwd)')
+MAX_WAYPOINTS = 1024  # the first-hit backward's checkpoint table
 
 RAY_CHUNK = 4096  # cells per step of the plain versions
 
@@ -163,23 +178,126 @@ def ray_aggregate_cuda(fused_map, grids, radial_norm, steps, c_r: int,
     return out
 
 
+def _check_grad(name, g, shape, dev):
+    if g.device != dev or g.dtype != torch.float32 or \
+            tuple(g.shape) != tuple(shape) or not g.is_contiguous():
+        raise ValueError(f'{name}: upstream gradient {tuple(g.shape)} '
+                         f'{g.dtype} must be contiguous f32 {tuple(shape)} '
+                         f'on {dev}')
+
+
+def ray_first_hit_backward_cuda(occ, grids, radial_norm, steps, act: str,
+                                g):
+    """Launch K6/K7: d occ [B, H, W, Z] (occ's dtype, accumulated in f32)
+    from the gradient g [B, N, Z] f32 of K3's output."""
+    _check_geometry('ray_first_hit_backward', occ, grids, radial_norm,
+                    steps)
+    if act not in ('exp', 'sigmoid'):
+        raise NotImplementedError(act)
+    b, h, w, z = occ.shape
+    n, ng = grids.shape[0], steps.shape[0]
+    if ng > MAX_WAYPOINTS:
+        raise ValueError(f'ray_first_hit_backward: {ng} waypoints > '
+                         f'{MAX_WAYPOINTS}')
+    _check_grad('ray_first_hit_backward', g, (b, n, z), occ.device)
+    docc = torch.zeros(b, h, w, z, dtype=torch.float32, device=occ.device)
+    lib = load_library()
+    with torch.cuda.device(occ.device):
+        rc = lib.ray_first_hit_backward(
+            occ.data_ptr(), int(occ.dtype == torch.bfloat16),
+            grids.data_ptr(), radial_norm.data_ptr(), steps.data_ptr(),
+            g.data_ptr(), docc.data_ptr(), b, h, w, z, n, ng,
+            int(act == 'exp'), stream_of(occ))
+    check(rc, 'ray_first_hit_backward')
+    FIRST_HIT_BACKWARD.launched(occ=occ, grids=grids,
+                                radial_norm=radial_norm, steps=steps,
+                                act=act, g=g)
+    return docc.to(occ.dtype)
+
+
+def ray_aggregate_backward_cuda(fused_map, grids, radial_norm, steps,
+                                c_r: int, zdim: int, eps: float, g):
+    """Launch K8: d fused_map [B, H, W, c_r + Z] (the map's dtype,
+    accumulated in f32) from the gradient g [B, N, c_r] f32 of K4's
+    output."""
+    _check_geometry('ray_aggregate_backward', fused_map, grids, radial_norm,
+                    steps)
+    b, h, w, ct = fused_map.shape
+    if ct != c_r + zdim or zdim <= 0 or c_r % zdim:
+        raise ValueError(f'ray_aggregate_backward: {ct} channels for c_r='
+                         f'{c_r}, Z={zdim}')
+    n, ng = grids.shape[0], steps.shape[0]
+    _check_grad('ray_aggregate_backward', g, (b, n, c_r), fused_map.device)
+    dmap = torch.zeros(b, h, w, ct, dtype=torch.float32,
+                       device=fused_map.device)
+    lib = load_library()
+    with torch.cuda.device(fused_map.device):
+        rc = lib.ray_aggregate_backward(
+            fused_map.data_ptr(), int(fused_map.dtype == torch.bfloat16),
+            grids.data_ptr(), radial_norm.data_ptr(), steps.data_ptr(),
+            g.data_ptr(), dmap.data_ptr(), b, h, w, ct, c_r, zdim, n, ng,
+            float(eps), stream_of(fused_map))
+    check(rc, 'ray_aggregate_backward')
+    AGGREGATE_BACKWARD.launched(fused_map=fused_map, grids=grids,
+                                radial_norm=radial_norm, steps=steps,
+                                c_r=c_r, zdim=zdim, eps=eps, g=g)
+    return dmap.to(fused_map.dtype)
+
+
+class _FirstHit(torch.autograd.Function):
+    """K3 forward, K6/K7 backward; d occ only."""
+
+    @staticmethod
+    def forward(ctx, occ, grids, radial_norm, steps, act):
+        ctx.act = act
+        ctx.save_for_backward(occ, grids, radial_norm, steps)
+        return ray_first_hit_cuda(occ, grids, radial_norm, steps, act)
+
+    @staticmethod
+    def backward(ctx, g):
+        occ, grids, radial_norm, steps = ctx.saved_tensors
+        docc = ray_first_hit_backward_cuda(occ, grids, radial_norm, steps,
+                                           ctx.act, g.float().contiguous())
+        return docc, None, None, None, None
+
+
+class _Aggregate(torch.autograd.Function):
+    """K4 forward, K8 backward; d fused_map only."""
+
+    @staticmethod
+    def forward(ctx, fused_map, grids, radial_norm, steps, c_r, zdim, eps):
+        ctx.args = (c_r, zdim, eps)
+        ctx.save_for_backward(fused_map, grids, radial_norm, steps)
+        return ray_aggregate_cuda(fused_map, grids, radial_norm, steps, c_r,
+                                  zdim, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        fused_map, grids, radial_norm, steps = ctx.saved_tensors
+        dmap = ray_aggregate_backward_cuda(fused_map, grids, radial_norm,
+                                           steps, *ctx.args,
+                                           g.float().contiguous())
+        return dmap, None, None, None, None, None, None
+
+
 def ray_first_hit(occ, grids, radial_norm, steps, act: str):
-    """First-hit probability [B, N, Z] f32: K3 on CUDA, plain on CPU."""
+    """First-hit probability [B, N, Z] f32: K3 (backward K6/K7) on CUDA,
+    plain on CPU."""
     if occ.device.type == 'cpu':
         return ray_first_hit_plain(occ, grids, radial_norm, steps, act)
-    return ray_first_hit_cuda(occ.contiguous(), grids.float().contiguous(),
-                              radial_norm.float().contiguous(),
-                              steps.float().contiguous(), act)
+    return _FirstHit.apply(occ.contiguous(), grids.float().contiguous(),
+                           radial_norm.float().contiguous(),
+                           steps.float().contiguous(), act)
 
 
 def ray_aggregate(fused_map, grids, radial_norm, steps, c_r: int, zdim: int,
                   eps: float):
-    """Prob-weighted ray aggregation [B, N, c_r] f32: K4 on CUDA, plain on
-    CPU."""
+    """Prob-weighted ray aggregation [B, N, c_r] f32: K4 (backward K8) on
+    CUDA, plain on CPU."""
     if fused_map.device.type == 'cpu':
         return ray_aggregate_plain(fused_map, grids, radial_norm, steps, c_r,
                                    zdim, eps)
-    return ray_aggregate_cuda(fused_map.contiguous(),
-                              grids.float().contiguous(),
-                              radial_norm.float().contiguous(),
-                              steps.float().contiguous(), c_r, zdim, eps)
+    return _Aggregate.apply(fused_map.contiguous(),
+                            grids.float().contiguous(),
+                            radial_norm.float().contiguous(),
+                            steps.float().contiguous(), c_r, zdim, eps)

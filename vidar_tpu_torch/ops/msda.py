@@ -1,9 +1,11 @@
 """Multi-scale deformable attention (port of vidar_tpu/ops/msda.py).
 
 ``msdeform_attn`` is the one primitive under temporal self-attention,
-spatial cross-attention and the future decoder. On a CUDA tensor it
-launches the hand-written kernel K1 (``csrc/msda.cu``); on a CPU tensor it
-runs ``msdeform_attn_plain``, the same function in plain PyTorch.
+spatial cross-attention and the future decoder. On a CUDA tensor it runs a
+``torch.autograd.Function`` whose forward is the hand-written kernel K1
+(``csrc/msda.cu``) and whose backward is K5 (``csrc/msda_bwd.cu``); on a
+CPU tensor it runs ``msdeform_attn_plain``, the same function in plain
+PyTorch, and autograd differentiates that.
 
 Semantics are mmcv's ``multi_scale_deformable_attn``: sampling locations in
 [0, 1], bilinear sampling with ``align_corners=False`` and zero padding,
@@ -23,6 +25,9 @@ KERNEL = KernelCounter(
     'msda_forward', source='vidar_tpu_torch/csrc/msda.cu',
     replaces='vidar_tpu/ops/msda_pallas.py:223 (msda_gather_fused), '
              ':356 (msda_gather_fused16)')
+BACKWARD = KernelCounter(
+    'msda_backward', source='vidar_tpu_torch/csrc/msda_bwd.cu',
+    replaces='vidar_tpu/ops/msda_pallas.py:549 (msda_gather_fused_bwd)')
 
 _level_tables = {}
 
@@ -77,22 +82,16 @@ def _tables(spatial_shapes, device):
     return _level_tables[key]
 
 
-def msda_forward_cuda(value: torch.Tensor,
-                      spatial_shapes: Sequence[Tuple[int, int]],
-                      loc: torch.Tensor, weights: torch.Tensor
-                      ) -> torch.Tensor:
-    """Launch K1. value [B, V, heads, dim<=32] bf16 or f32, loc
-    [B, Q, heads, L, P, 2] f32, weights [B, Q, heads, L, P] f32, all
-    contiguous on one CUDA device -> [B, Q, heads*dim] f32."""
+def _check_inputs(name, value, spatial_shapes, loc, weights):
     if not (value.is_cuda and loc.device == value.device ==
             weights.device):
-        raise ValueError('msda_forward: all inputs must be on one CUDA device')
+        raise ValueError(f'{name}: all inputs must be on one CUDA device')
     if value.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f'msda_forward: value dtype {value.dtype}')
+        raise TypeError(f'{name}: value dtype {value.dtype}')
     if loc.dtype != torch.float32 or weights.dtype != torch.float32:
-        raise TypeError('msda_forward: loc and weights must be float32')
+        raise TypeError(f'{name}: loc and weights must be float32')
     if value.dim() != 4 or loc.dim() != 6 or weights.dim() != 5:
-        raise ValueError('msda_forward: bad ranks')
+        raise ValueError(f'{name}: bad ranks')
     b, v_len, heads, dim = value.shape
     _, q, _, num_levels, p, _ = loc.shape
     if (loc.shape != (b, q, heads, num_levels, p, 2) or
@@ -100,12 +99,24 @@ def msda_forward_cuda(value: torch.Tensor,
             len(spatial_shapes) != num_levels or
             sum(h * w for h, w in spatial_shapes) != v_len):
         raise ValueError(
-            f'msda_forward: shapes value {tuple(value.shape)}, loc '
+            f'{name}: shapes value {tuple(value.shape)}, loc '
             f'{tuple(loc.shape)}, weights {tuple(weights.shape)}, levels '
             f'{list(spatial_shapes)}')
     if not (value.is_contiguous() and loc.is_contiguous() and
             weights.is_contiguous()):
-        raise ValueError('msda_forward: inputs must be contiguous')
+        raise ValueError(f'{name}: inputs must be contiguous')
+
+
+def msda_forward_cuda(value: torch.Tensor,
+                      spatial_shapes: Sequence[Tuple[int, int]],
+                      loc: torch.Tensor, weights: torch.Tensor
+                      ) -> torch.Tensor:
+    """Launch K1. value [B, V, heads, dim<=32] bf16 or f32, loc
+    [B, Q, heads, L, P, 2] f32, weights [B, Q, heads, L, P] f32, all
+    contiguous on one CUDA device -> [B, Q, heads*dim] f32."""
+    _check_inputs('msda_forward', value, spatial_shapes, loc, weights)
+    b, v_len, heads, dim = value.shape
+    _, q, _, num_levels, p, _ = loc.shape
     shapes_t, starts_t = _tables(spatial_shapes, value.device)
     out = torch.empty(b, q, heads * dim, dtype=torch.float32,
                       device=value.device)
@@ -122,15 +133,69 @@ def msda_forward_cuda(value: torch.Tensor,
     return out
 
 
+def msda_backward_cuda(value: torch.Tensor,
+                       spatial_shapes: Sequence[Tuple[int, int]],
+                       loc: torch.Tensor, weights: torch.Tensor,
+                       dout: torch.Tensor):
+    """Launch K5: the gradients of K1's output against value, loc and
+    weights, given dout [B, Q, heads*dim] f32. Same input rules as
+    ``msda_forward_cuda``. Returns (dvalue in value's dtype, accumulated in
+    f32; dloc f32; dweights f32)."""
+    _check_inputs('msda_backward', value, spatial_shapes, loc, weights)
+    b, v_len, heads, dim = value.shape
+    _, q, _, num_levels, p, _ = loc.shape
+    if (dout.device != value.device or dout.dtype != torch.float32 or
+            dout.shape != (b, q, heads * dim) or not dout.is_contiguous()):
+        raise ValueError(f'msda_backward: dout {tuple(dout.shape)} '
+                         f'{dout.dtype} must be contiguous f32 '
+                         f'{(b, q, heads * dim)} on {value.device}')
+    shapes_t, starts_t = _tables(spatial_shapes, value.device)
+    dvalue = torch.zeros(value.shape, dtype=torch.float32,
+                         device=value.device)
+    dloc = torch.empty_like(loc)
+    dweights = torch.empty_like(weights)
+    lib = load_library()
+    with torch.cuda.device(value.device):
+        rc = lib.msda_backward(
+            value.data_ptr(), int(value.dtype == torch.bfloat16),
+            shapes_t.data_ptr(), starts_t.data_ptr(), loc.data_ptr(),
+            weights.data_ptr(), dout.data_ptr(), dvalue.data_ptr(),
+            dloc.data_ptr(), dweights.data_ptr(), b, v_len, q, heads, dim,
+            num_levels, p, stream_of(value))
+    check(rc, 'msda_backward')
+    BACKWARD.launched(value=value, spatial_shapes=list(spatial_shapes),
+                      loc=loc, weights=weights, dout=dout)
+    return dvalue.to(value.dtype), dloc, dweights
+
+
+class _MSDeformAttn(torch.autograd.Function):
+    """K1 forward, K5 backward."""
+
+    @staticmethod
+    def forward(ctx, value, loc, weights, spatial_shapes):
+        ctx.spatial_shapes = spatial_shapes
+        ctx.save_for_backward(value, loc, weights)
+        return msda_forward_cuda(value, spatial_shapes, loc, weights)
+
+    @staticmethod
+    def backward(ctx, dout):
+        value, loc, weights = ctx.saved_tensors
+        dvalue, dloc, dweights = msda_backward_cuda(
+            value, ctx.spatial_shapes, loc, weights,
+            dout.float().contiguous())
+        return dvalue, dloc, dweights, None
+
+
 def msdeform_attn(value: torch.Tensor,
                   spatial_shapes: Sequence[Tuple[int, int]],
                   sampling_locations: torch.Tensor,
                   attention_weights: torch.Tensor) -> torch.Tensor:
-    """Multi-scale deformable attention -> [B, Q, heads*dim] f32: K1 for
+    """Multi-scale deformable attention -> [B, Q, heads*dim] f32: K1/K5 for
     CUDA tensors, the plain version for CPU tensors."""
     if value.device.type == 'cpu':
         return msdeform_attn_plain(value, spatial_shapes, sampling_locations,
                                    attention_weights)
-    return msda_forward_cuda(value.contiguous(), spatial_shapes,
-                             sampling_locations.float().contiguous(),
-                             attention_weights.float().contiguous())
+    return _MSDeformAttn.apply(value.contiguous(),
+                               sampling_locations.float().contiguous(),
+                               attention_weights.float().contiguous(),
+                               tuple(spatial_shapes))
