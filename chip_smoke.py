@@ -1,5 +1,6 @@
-"""Chip smoke test of the PyTorch/CUDA port: the ViDAR forecast and the
-pre-training step on one GPU.
+"""Chip smoke test of the PyTorch/CUDA port: the ViDAR forecast, the
+pre-training step, and the BEVFormer detection fine-tune (eval, streaming
+eval and train step) on one GPU.
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and the
 CUDA toolkit:
@@ -7,19 +8,19 @@ CUDA toolkit:
     python3 chip_smoke.py
 
 Phases (any failure raises, so the script exits non-zero and prints no
-result line):
+result line). Every kernel's launches are counted from 0 around each path
+it drives; a kernel of the path that never launched fails the run:
 
 0. the card (``nvidia-smi`` name and power limit), torch and CUDA versions,
-   and the TF32 switches, set explicitly;
-1. the build of the CUDA kernels from ``vidar_tpu_torch/csrc`` (K1-K4 and
-   the backwards K5, K6/K7, K8);
+   and the TF32 switches, set explicitly (off);
+1. the build of the CUDA kernels from ``vidar_tpu_torch/csrc`` (K1-K4, the
+   backwards K5, K6/K7, K8, and K9);
 2. one full forecast of ``vidar_base`` in bf16 at the nuScenes shapes of
    bench.py (bs 1, 4+1 frames, 6 cameras, 928x1600, 6 futures, 32768 rays),
    random weights (N(0, 1) x 0.02 from a seeded generator), through
-   ``ForecastRunner``; every forward kernel's launch count must be > 0, and
-   each kernel's first input is kept; then the small-input forecast check
-   (``vidar_tiny``, card kernels vs CPU plain versions, same weights and
-   batch);
+   ``ForecastRunner``; each forward kernel's first input is kept; then the
+   small-input forecast check (``vidar_tiny``, card kernels vs CPU plain
+   versions, same weights and batch);
 3. each forward kernel against its plain PyTorch version on the kept
    inputs: error and CUDA-event times of both, and the bound: the larger of
    the bytes the function must move over 3.35 TB/s and its floating-point
@@ -30,15 +31,35 @@ result line):
    and depth in bf16 with f32 parameters, the shapes of
    benchmarks/train_step_flagship.py (bs 1, 4+1 frames, 6 cameras at
    928x1600, 3 supervised futures, 32768 GT points), random weights as
-   above, through ``TrainStep`` and ``make_optimizer``: every kernel, K1 to
-   K8, must launch, the losses and the gradient norm must be finite, the
-   parameters must move, and each backward kernel's first input is kept;
-   the small-input train check (``vidar_tiny``, one forward and backward on
-   the card and on the CPU, same weights and batch: the losses and the
-   cosine similarity of the gradients); each backward kernel against
-   autograd of its plain forward in f32 on the kept inputs, as in phase 3;
-   then two timed steps, the forward alone (autograd on, the graph freed
-   without a backward) and the step's peak device memory.
+   above, through ``TrainStep`` and ``make_optimizer``: the losses and the
+   gradient norm must be finite, the parameters must move, and each
+   backward kernel's first input is kept; the small-input train check
+   (``vidar_tiny``, one forward and backward on the card and on the CPU,
+   same weights and batch: the losses and the cosine similarity of the
+   gradients); each backward kernel against autograd of its plain forward
+   in f32 on the kept inputs, as in phase 3; then two timed steps, the
+   forward alone (autograd on, the graph freed without a backward) and the
+   step's peak device memory;
+6. the f32 fine-tune ``BEVFormer(**vidar_finetune_1_8_nusc_3future())`` at
+   full width and depth, random weights as above (bs 1, 4+1 frames, 6
+   cameras at 928x1600, 900 queries, 200x200 BEV, 40 synthetic GT boxes of
+   128): one full-window eval and three streamed frames through
+   ``DetectionRunner``, ``evaluate_detection`` on their decodes (K9, K1,
+   K3, K4 must launch, K2 must not); the small-input fine-tune check
+   (``vidar_finetune_tiny``, card vs CPU, window and streamed outputs); K9
+   against its plain version on the kept stage-3 and stage-4 inputs with
+   ``F.grid_sample`` as the library yardstick, K1 at the fine-tune's f32
+   TSA, SCA and detection-decoder inputs, and K3 and K4 at its f32
+   occupancy and fused map, as in phase 3; then the timed full-window
+   sample and streamed frames, with peak device memory;
+7. the fine-tune train step at the same shapes through ``DetTrainStep``:
+   a warm-up step (K9, K1, K5, K3, K4, K6/K7, K8 must launch; finite losses
+   and gradient norm; parameters move; each backward kernel's first f32
+   input is kept), the small-input fine-tune train check (losses and
+   gradient cosine, card vs CPU), K5 at the TSA, SCA and decoder inputs and
+   K6/K7 and K8 against autograd of their plain forwards, as in phase 5,
+   two timed steps with peak device memory, and one step with the host's
+   Hungarian calls timed.
 
 The line before the last is a JSON object of per-kernel results; the last
 is ``{"ok": true, "device": {...}}``.
@@ -46,6 +67,7 @@ is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -68,6 +90,10 @@ TOLERANCES = {
     'ray_first_hit_forward': (1e-4, 0.0),
     # two sums over <= 256 waypoints in another order, then one division
     'ray_aggregate_forward': (1e-5, 1e-4),
+    # the plain version's four products and sum order, then the mask,
+    # without fused multiply-adds: equal but for a sign of zero; 1e-5 of the
+    # largest tap
+    'dcn_sample_forward': (0.0, 1e-5),
 }
 # Backward kernels against autograd of the plain version in f32: f32 atomic
 # sums in an order that changes from run to run (1e-4 of the largest
@@ -136,9 +162,16 @@ class _Keeper:
                                  for k, v in args.items()}
 
 
-def _msda_case(args):
+def _msda_case(args, prefix=''):
+    """The attention an MSDA call serves, by (batch, levels); ``prefix``
+    names the model (the fine-tune's decoder shares ViDAR's (1, 1))."""
     b, levels = args['value'].shape[0], len(args['spatial_shapes'])
-    return {(2, 1): 'tsa', (6, 4): 'sca', (1, 1): 'decoder'}.get((b, levels))
+    case = {(2, 1): 'tsa', (6, 4): 'sca', (1, 1): 'decoder'}.get((b, levels))
+    return case and prefix + case
+
+
+def _det_msda_case(args):
+    return _msda_case(args, 'det_')
 
 
 def _dcn_case(args):
@@ -175,6 +208,14 @@ def _msda_valid_samples(loc, spatial_shapes):
         n += int(((x >= -1) & (x <= w - 1) & (y >= -1) &
                   (y <= h - 1)).sum())
     return n
+
+
+def _dcn_valid_taps(sx, sy, h, w):
+    """Taps whose top-left corner touches the map (the others are zeros
+    with no loads), counted from this run's coordinates."""
+    x0, y0 = torch.floor(sx), torch.floor(sy)
+    return int(((x0 >= -1) & (x0 <= w - 1) & (y0 >= -1) &
+                (y0 <= h - 1)).sum())
 
 
 def _ray_counts(grids, radial_norm, steps):
@@ -233,6 +274,13 @@ def _cost(name, a, out_bytes):
         return (_nbytes(v, loc, w, a['dout']) + out_bytes,
                 {'f32': n * (F['corners'] + 4 + 8 + 14 + 2 +
                              dim * (F['lerp'] + F['scatter']))})
+    if name == 'dcn_sample_forward':
+        # per tap that touches the map: its corners; per such tap and
+        # channel: 4 FMAs and the mask product. Every tap is written.
+        x = a['x']
+        taps = _dcn_valid_taps(a['sx'], a['sy'], *x.shape[1:3])
+        return (_nbytes(x, a['sx'], a['sy'], a['mask']) + out_bytes,
+                {'f32': taps * (F['corners'] + x.shape[-1] * (F['lerp'] + 1))})
     if name == 'dcn_conv_forward':
         x, w = a['x'], a['weight']
         b, q = a['sx'].shape[:2]
@@ -282,6 +330,48 @@ def _cost(name, a, out_bytes):
              + b * n * c_r * 5})
 
 
+def _window(det_batch, end):
+    """The detection batch cut to its first ``end`` camera frames: frame
+    ``end - 1`` is then the current one."""
+    f = det_batch.frames
+    frames = dataclasses.replace(f, **{
+        k: getattr(f, k)[:, :end] for k in (
+            'images', 'lidar2img', 'can_bus', 'shift', 'rotate_angle',
+            'prev_bev_exists')})
+    return dataclasses.replace(det_batch, frames=frames)
+
+
+def _stream_meta(k):
+    """Frame k of one synthetic scene: the ego drives 2 m forward and
+    turns 1 degree per frame."""
+    can_bus = np.zeros(18)
+    can_bus[0], can_bus[-1] = 2.0 * k, 1.0 * k
+    return dict(can_bus=can_bus, scene_token='scene-0', l2g_rot=np.eye(3))
+
+
+def _grid_sample_taps(x_nchw, grid, mask):
+    """K9's function as one PyTorch call in its own layout (the library
+    yardstick): x [B, C, H, W], grid [B, Q*9, 1, 2] in [-1, 1] with
+    align_corners, mask [B, 1, Q*9, 1] -> [B, C, Q*9, 1]."""
+    return torch.nn.functional.grid_sample(
+        x_nchw, grid, mode='bilinear', padding_mode='zeros',
+        align_corners=True) * mask
+
+
+def _check_detections(name, pred, gt, num_classes):
+    """One sample's entries: K finite boxes [K, 9], K scores in [0, 1], K
+    labels among the classes, K attributes; GT boxes [G, 9]."""
+    k = len(pred['boxes'])
+    ok = (pred['boxes'].shape == (k, 9) and pred['scores'].shape == (k,) and
+          pred['labels'].shape == (k,) and len(pred['attrs']) == k and
+          gt['boxes'].shape[1:] == (9,) and
+          np.isfinite(pred['boxes']).all() and
+          ((pred['scores'] >= 0) & (pred['scores'] <= 1)).all() and
+          ((pred['labels'] >= 0) & (pred['labels'] < num_classes)).all())
+    if not ok:
+        raise RuntimeError(f'{name}: malformed detections')
+
+
 def _plain_grads(fn, inputs, g):
     """Autograd of a plain version in f32 (bf16 inputs upcast: the same
     values): the gradients of <fn(*inputs), g> against the inputs."""
@@ -294,12 +384,19 @@ def main() -> int:
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 2
 
-    from vidar_tpu_torch.configs import vidar_base, vidar_tiny
-    from vidar_tpu_torch.data import make_synthetic_batch
+    from vidar_tpu_torch.configs import (vidar_base,
+                                         vidar_finetune_1_8_nusc_3future,
+                                         vidar_finetune_tiny, vidar_tiny)
+    from vidar_tpu_torch.core import bbox as bbox_core
+    from vidar_tpu_torch.data import (make_synthetic_batch,
+                                      make_synthetic_det_batch)
+    from vidar_tpu_torch.evals.det_runner import CLASS_NAMES, DetectionRunner
+    from vidar_tpu_torch.evals.detection import evaluate_detection
     from vidar_tpu_torch.evals.forecast_runner import ForecastRunner
-    from vidar_tpu_torch.models import ViDAR
+    from vidar_tpu_torch.models import BEVFormer, ViDAR
     from vidar_tpu_torch.ops import _build, dcn, latent_render, msda
-    from vidar_tpu_torch.train import TrainStep, make_optimizer
+    from vidar_tpu_torch.train import (DetTrainStep, TrainStep,
+                                       make_optimizer)
 
     dev = torch.device('cuda:0')
     # -- phase 0: the card and the numerics switches
@@ -322,6 +419,8 @@ def main() -> int:
     backward_kernels = [msda.BACKWARD, latent_render.FIRST_HIT_BACKWARD,
                         latent_render.AGGREGATE_BACKWARD]
     kernels = forward_kernels + backward_kernels
+    # K9 runs on the f32 fine-tune's path only; every path counts it
+    counted = kernels + [dcn.SAMPLE]
     keepers = {msda.KERNEL.name: _Keeper(_msda_case),
                dcn.KERNEL.name: _Keeper(_dcn_case),
                latent_render.FIRST_HIT.name: _Keeper(lambda a: 'encoder'),
@@ -339,14 +438,16 @@ def main() -> int:
                                  max_points=pts, device=dev)
     runner = ForecastRunner(model, (ih, iw), num_future=f, device=dev)
     t0 = time.perf_counter()
-    out, launches = _run_counted(forward_kernels, keepers,
-                                 lambda: runner(batch))
+    out, launches = _run_counted(counted, keepers, lambda: runner(batch))
     first_s = time.perf_counter() - t0
     print(f'forecast 1 (incl. warm-up): {first_s:.3f} s; launches '
           f'{json.dumps(launches)}', flush=True)
-    for name, n in launches.items():
-        if n <= 0:
-            raise RuntimeError(f'kernel {name} never launched on the path')
+    for k in forward_kernels:
+        if launches[k.name] <= 0:
+            raise RuntimeError(f'kernel {k.name} never launched on the path')
+    if launches[dcn.SAMPLE.name] or any(launches[k.name]
+                                        for k in backward_kernels):
+        raise RuntimeError('the bf16 forecast ran K9 or a backward kernel')
     for key in ('pred_dist', 'gt_dist', 'frame_idx'):
         if tuple(out[key].shape) != (bs, pts):
             raise RuntimeError(f'{key} shape {tuple(out[key].shape)}')
@@ -399,20 +500,23 @@ def main() -> int:
     # -- phase 3: every forward kernel against its plain version
     results = []
 
-    def record(counter, case, err, scale, ok, ms, plain_ms, cost, n):
+    def record(counter, case, err, scale, ok, ms, plain_ms, cost, n,
+               library_ms=None):
         bound_ms, bound_by = _bound(*cost)
+        lib = '' if library_ms is None else f', library {library_ms:.3f} ms'
         print(f'{counter.name}[{case}]: max_abs_err {err:.3g} (max|plain| '
-              f'{scale:.4g}) kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, '
-              f'bound {bound_ms:.4f} ms ({bound_by}) -> '
+              f'{scale:.4g}) kernel {ms:.3f} ms, plain {plain_ms:.3f} ms'
+              f'{lib}, bound {bound_ms:.4f} ms ({bound_by}) -> '
               f'{"ok" if ok else "FAIL"}', flush=True)
         results.append(dict(
             name=f'{counter.name}[{case}]', route='cuda',
             source=counter.source, replaces=counter.replaces,
             launches=n[counter.name], max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=None))
+            library_ms=library_ms))
 
-    def compare(counter, case, args, run_kernel, run_plain):
+    def compare(counter, case, args, run_kernel, run_plain, n=launches,
+                library=None):
         got = run_kernel()
         torch.cuda.synchronize()
         want = run_plain()
@@ -421,10 +525,13 @@ def main() -> int:
         scale = want.abs().max().item()
         atol, rtol = TOLERANCES[counter.name]
         ok = err <= atol + rtol * scale and bool(torch.isfinite(got).all())
+        out_bytes = _nbytes(got)
+        del got, want
         plain_ms = _time_ms(run_plain)
         ms = _time_ms(run_kernel)
+        library_ms = None if library is None else _time_ms(library)
         record(counter, case, err, scale, ok, ms, plain_ms,
-               _cost(counter.name, args, _nbytes(got)), launches)
+               _cost(counter.name, args, out_bytes), n, library_ms)
         return ok
 
     oks = []
@@ -451,20 +558,26 @@ def main() -> int:
         oks.append(compare(dcn.KERNEL, case, a,
                            lambda args=args: dcn.dcn_conv_cuda(*args),
                            lambda args=args: dcn.dcn_conv_plain(*args)))
-    a = keepers[latent_render.FIRST_HIT.name].inputs['encoder']
-    geo = (a['grids'], a['radial_norm'], a['steps'])
-    oks.append(compare(
-        latent_render.FIRST_HIT, 'encoder', a,
-        lambda: latent_render.ray_first_hit_cuda(a['occ'], *geo, a['act']),
-        lambda: latent_render.ray_first_hit_plain(a['occ'], *geo,
-                                                  a['act'])))
-    a = keepers[latent_render.AGGREGATE.name].inputs['encoder']
-    agg = (a['fused_map'], a['grids'], a['radial_norm'], a['steps'],
-           a['c_r'], a['zdim'], a['eps'])
-    oks.append(compare(
-        latent_render.AGGREGATE, 'encoder', a,
-        lambda: latent_render.ray_aggregate_cuda(*agg),
-        lambda: latent_render.ray_aggregate_plain(*agg)))
+
+    def compare_render(kept, case, n):
+        """K3 and K4 on the inputs kept for ``case`` -> [ok, ok]."""
+        a = kept[latent_render.FIRST_HIT.name].inputs[case]
+        geo = (a['grids'], a['radial_norm'], a['steps'])
+        first_hit = compare(
+            latent_render.FIRST_HIT, case, a,
+            lambda: latent_render.ray_first_hit_cuda(a['occ'], *geo,
+                                                     a['act']),
+            lambda: latent_render.ray_first_hit_plain(a['occ'], *geo,
+                                                      a['act']), n=n)
+        b = kept[latent_render.AGGREGATE.name].inputs[case]
+        agg = (b['fused_map'], b['grids'], b['radial_norm'], b['steps'],
+               b['c_r'], b['zdim'], b['eps'])
+        return [first_hit, compare(
+            latent_render.AGGREGATE, case, b,
+            lambda: latent_render.ray_aggregate_cuda(*agg),
+            lambda: latent_render.ray_aggregate_plain(*agg), n=n)]
+
+    oks += compare_render(keepers, 'encoder', launches)
     keepers.clear()
     if not all(oks):
         raise RuntimeError('a kernel disagrees with its plain version')
@@ -506,16 +619,18 @@ def main() -> int:
                                else lambda a: 'encoder')
                for k in backward_kernels}
     t0 = time.perf_counter()
-    metrics, train_launches = _run_counted(kernels, keepers,
+    metrics, train_launches = _run_counted(counted, keepers,
                                            lambda: step(tr_batch))
     warm_s = time.perf_counter() - t0
     print(f'train step 1 (incl. warm-up): {warm_s:.3f} s; launches '
           f'{json.dumps(train_launches)}; metrics {json.dumps(metrics)}',
           flush=True)
-    for name, n in train_launches.items():
-        if n <= 0:
-            raise RuntimeError(f'kernel {name} never launched in the train '
+    for k in kernels:
+        if train_launches[k.name] <= 0:
+            raise RuntimeError(f'kernel {k.name} never launched in the train '
                                f'step')
+    if train_launches[dcn.SAMPLE.name]:
+        raise RuntimeError('the bf16 train step ran K9')
     for r in results:
         r['train_launches'] = train_launches[r['name'].split('[')[0]]
     if not all(np.isfinite(v) for v in metrics.values()):
@@ -566,7 +681,8 @@ def main() -> int:
 
     # the backward kernels on the train step's inputs, against autograd of
     # the plain forward
-    def compare_backward(counter, case, args, run_kernel, plain_fn, inputs):
+    def compare_backward(counter, case, args, run_kernel, plain_fn, inputs,
+                         n):
         g = args['g'] if 'g' in args else args['dout']
         got = run_kernel()
         want = _plain_grads(plain_fn, inputs, g)
@@ -585,37 +701,42 @@ def main() -> int:
         plain_ms = _time_ms(lambda: _plain_grads(plain_fn, inputs, g))
         ms = _time_ms(run_kernel)
         record(counter, case, err0, scale0, ok, ms, plain_ms,
-               _cost(counter.name, args, _nbytes(*got)), train_launches)
-        results[-1]['train_launches'] = train_launches[counter.name]
+               _cost(counter.name, args, _nbytes(*got)), n)
         return ok
 
-    oks = []
-    for case, a in sorted(keepers[msda.BACKWARD.name].inputs.items()):
-        shapes = a['spatial_shapes']
+    def compare_backwards(kept, render_case, n):
+        """K5 on every kept case, K6/K7 and K8 on ``render_case`` -> [ok]."""
+        oks = []
+        for case, a in sorted(kept[msda.BACKWARD.name].inputs.items()):
+            shapes = a['spatial_shapes']
+            oks.append(compare_backward(
+                msda.BACKWARD, f'{case},{str(a["value"].dtype)[6:]}', a,
+                lambda a=a: msda.msda_backward_cuda(
+                    a['value'], a['spatial_shapes'], a['loc'], a['weights'],
+                    a['dout']),
+                lambda v, lo, w, s=shapes: msda.msdeform_attn_plain(v, s, lo,
+                                                                    w),
+                (a['value'], a['loc'], a['weights']), n))
+        a = kept[latent_render.FIRST_HIT_BACKWARD.name].inputs[render_case]
+        geo = (a['grids'], a['radial_norm'], a['steps'])
         oks.append(compare_backward(
-            msda.BACKWARD, f'{case},{str(a["value"].dtype)[6:]}', a,
-            lambda a=a: msda.msda_backward_cuda(
-                a['value'], a['spatial_shapes'], a['loc'], a['weights'],
-                a['dout']),
-            lambda v, lo, w, s=shapes: msda.msdeform_attn_plain(v, s, lo, w),
-            (a['value'], a['loc'], a['weights'])))
-    a = keepers[latent_render.FIRST_HIT_BACKWARD.name].inputs['encoder']
-    geo = (a['grids'], a['radial_norm'], a['steps'])
-    oks.append(compare_backward(
-        latent_render.FIRST_HIT_BACKWARD, 'encoder', a,
-        lambda: (latent_render.ray_first_hit_backward_cuda(
-            a['occ'], *geo, a['act'], a['g']),),
-        lambda o: latent_render.ray_first_hit_plain(o, *geo, a['act']),
-        (a['occ'],)))
-    a = keepers[latent_render.AGGREGATE_BACKWARD.name].inputs['encoder']
-    geo = (a['grids'], a['radial_norm'], a['steps'])
-    rest = (a['c_r'], a['zdim'], a['eps'])
-    oks.append(compare_backward(
-        latent_render.AGGREGATE_BACKWARD, 'encoder', a,
-        lambda: (latent_render.ray_aggregate_backward_cuda(
-            a['fused_map'], *geo, *rest, a['g']),),
-        lambda fm: latent_render.ray_aggregate_plain(fm, *geo, *rest),
-        (a['fused_map'],)))
+            latent_render.FIRST_HIT_BACKWARD, render_case, a,
+            lambda: (latent_render.ray_first_hit_backward_cuda(
+                a['occ'], *geo, a['act'], a['g']),),
+            lambda o: latent_render.ray_first_hit_plain(o, *geo, a['act']),
+            (a['occ'],), n))
+        b = kept[latent_render.AGGREGATE_BACKWARD.name].inputs[render_case]
+        geo_b = (b['grids'], b['radial_norm'], b['steps'])
+        rest = (b['c_r'], b['zdim'], b['eps'])
+        oks.append(compare_backward(
+            latent_render.AGGREGATE_BACKWARD, render_case, b,
+            lambda: (latent_render.ray_aggregate_backward_cuda(
+                b['fused_map'], *geo_b, *rest, b['g']),),
+            lambda fm: latent_render.ray_aggregate_plain(fm, *geo_b, *rest),
+            (b['fused_map'],), n))
+        return oks
+
+    oks = compare_backwards(keepers, 'encoder', train_launches)
     keepers.clear()
     if not all(oks):
         raise RuntimeError('a backward kernel disagrees with its plain '
@@ -655,6 +776,288 @@ def main() -> int:
           f'grad_norm {metrics["grad_norm"]:.5g}, sca_overflow '
           f'{metrics["sca_overflow"]} on {card}', flush=True)
 
+    del tr_model, step, tr_batch
+    torch.cuda.empty_cache()
+
+    # -- phase 6: the f32 fine-tune at full width and depth, the full-window
+    # eval and three streamed frames; every count set to 0 around them
+    det_kernels = [msda.KERNEL, dcn.SAMPLE, latent_render.FIRST_HIT,
+                   latent_render.AGGREGATE]
+    keepers = {msda.KERNEL.name: _Keeper(_det_msda_case),
+               dcn.SAMPLE.name: _Keeper(_dcn_case),
+               latent_render.FIRST_HIT.name: _Keeper(lambda a: 'det_encoder'),
+               latent_render.AGGREGATE.name: _Keeper(lambda a: 'det_encoder')}
+    dcfg = vidar_finetune_1_8_nusc_3future()
+    det = BEVFormer(**dcfg, device=dev).eval()
+    det.randomize_(torch.Generator(device=dev).manual_seed(4), 0.02)
+    n_gt, max_gt = 40, 128
+    det_batch = make_synthetic_det_batch(
+        np.random.default_rng(0), bs=bs, queue_length=q, num_cams=cams,
+        img_h=ih, img_w=iw, max_points=64, max_gt=max_gt, num_gt=n_gt,
+        device=dev)
+    full = DetectionRunner(det, device=dev)
+    stream = DetectionRunner(det, streaming=True, device=dev)
+    frames = [(_window(det_batch, q - 1 + k), _stream_meta(k))
+              for k in range(3)]
+
+    def det_eval():
+        out = {'full': full(det_batch)}
+        stream.reset()
+        for k, (b_k, meta) in enumerate(frames):
+            out[f'stream{k}'] = stream(b_k, meta)
+        return out
+
+    t0 = time.perf_counter()
+    samples, det_launches = _run_counted(counted, keepers, det_eval)
+    det_first_s = time.perf_counter() - t0
+    print(f'fine-tune eval 1 (incl. warm-up; full window + 3 streamed '
+          f'frames): {det_first_s:.3f} s; launches '
+          f'{json.dumps(det_launches)}', flush=True)
+    for k in det_kernels:
+        if det_launches[k.name] <= 0:
+            raise RuntimeError(f'kernel {k.name} never launched in the '
+                               f'fine-tune eval')
+    if det_launches[dcn.KERNEL.name]:
+        raise RuntimeError('the f32 fine-tune ran K2, the bf16 DCN')
+    for name, (pred, gt) in samples.items():
+        _check_detections(name, pred, gt, dcfg['num_classes'])
+    if len(samples['full'][1]['boxes']) != n_gt:
+        raise RuntimeError('ground truth lost boxes')
+    metrics = evaluate_detection({k: p for k, (p, _) in samples.items()},
+                                 {k: g for k, (_, g) in samples.items()},
+                                 CLASS_NAMES)
+    if not all(np.isfinite(v) for v in metrics.values()) or not (
+            0 <= metrics['mAP'] <= 1 and 0 <= metrics['NDS'] <= 1):
+        raise RuntimeError(f'detection metrics {metrics}')
+    print(f'detections: {[len(p["boxes"]) for p, _ in samples.values()]} '
+          f'valid boxes per sample (of 300); metrics on the synthetic boxes '
+          f'(random weights): mAP {metrics["mAP"]:.4f}, NDS '
+          f'{metrics["NDS"]:.4f}', flush=True)
+
+    # small input: the fine-tune at test size through the kernels (card)
+    # and the plain versions (CPU), same weights and batch, f32 on both
+    tdcfg = vidar_finetune_tiny(use_grid_mask=False)
+    tiny = BEVFormer(**tdcfg, device=dev).eval()
+    _unit_scale_(tiny, torch.Generator(device=dev).manual_seed(5))
+    tiny_cpu = BEVFormer(**tdcfg, device='cpu').eval()
+    tiny_cpu.load_state_dict({k: v.cpu() for k, v in
+                              tiny.state_dict().items()})
+    sdb = make_synthetic_det_batch(np.random.default_rng(0), device='cpu')
+    sides = []
+    for m, d in ((tiny, dev), (tiny_cpu, 'cpu')):
+        with torch.inference_mode():
+            f = sdb.frames.to(d)
+            preds = m(f, train=False)
+            st = m.init_stream(1, d)
+            for b_k in (_window(sdb, 2), sdb):
+                sp, st = m.streaming_test(b_k.frames.to(d), st)
+        sides.append({'window cls': preds['all_cls_scores'],
+                      'window boxes': preds['all_bbox_preds'],
+                      'streamed BEV': st.prev_bev,
+                      'streamed cls': sp['all_cls_scores'],
+                      'streamed boxes': sp['all_bbox_preds']})
+    errs = {k: ((sides[0][k].cpu() - sides[1][k]).abs().max() /
+                sides[1][k].abs().max()).item() for k in sides[1]}
+    print(f'small input (fine-tune tiny, 64x64, f32), card vs CPU plain, '
+          f'max err / max|CPU|: {json.dumps(errs)}', flush=True)
+    # f32 on both sides (TF32 off); sums in other orders through ~50
+    # layers: the CPU tests' 1e-3 against the JAX package
+    if max(errs.values()) > 1e-3:
+        raise RuntimeError('small-input fine-tune eval disagrees with the '
+                           'CPU')
+
+    # K9 and the fine-tune's K1 calls against their plain versions
+    oks = []
+    for case, a in sorted(keepers[dcn.SAMPLE.name].inputs.items()):
+        x, sx, sy, mask = a['x'], a['sx'], a['sy'], a['mask']
+        b_, h_, w_, _ = x.shape
+        x_nchw = x.permute(0, 3, 1, 2).contiguous()
+        grid = torch.stack([2 * sx / (w_ - 1) - 1, 2 * sy / (h_ - 1) - 1],
+                           -1).reshape(b_, -1, 1, 2)
+        m_l = mask.reshape(b_, 1, -1, 1)
+        oks.append(compare(
+            dcn.SAMPLE, case, a,
+            lambda a=a: dcn.dcn_sample_cuda(a['x'], a['sx'], a['sy'],
+                                            a['mask']),
+            lambda a=a: dcn.dcn_sample_plain(a['x'], a['sx'], a['sy'],
+                                             a['mask']),
+            n=det_launches,
+            library=lambda x_nchw=x_nchw, grid=grid, m_l=m_l:
+                _grid_sample_taps(x_nchw, grid, m_l)))
+        lib = _grid_sample_taps(x_nchw, grid, m_l).reshape(
+            b_, x.shape[-1], -1, 9).permute(0, 2, 3, 1)
+        plain = dcn.dcn_sample_plain(x, sx, sy, mask)
+        print(f'  grid_sample yardstick[{case}]: max abs diff from the plain '
+              f'version {(lib - plain).abs().max().item():.3g}', flush=True)
+        del x_nchw, grid, m_l, lib, plain
+    kept = keepers[msda.KERNEL.name].inputs
+    for case in ('det_tsa', 'det_sca', 'det_decoder'):
+        a = kept[case]
+        oks.append(compare(
+            msda.KERNEL, f'{case},{str(a["value"].dtype)[6:]}', a,
+            lambda a=a: msda.msda_forward_cuda(a['value'],
+                                               a['spatial_shapes'],
+                                               a['loc'], a['weights']),
+            lambda a=a: msda.msdeform_attn_plain(a['value'],
+                                                 a['spatial_shapes'],
+                                                 a['loc'], a['weights']),
+            n=det_launches))
+    oks += compare_render(keepers, 'det_encoder', det_launches)
+    keepers.clear()
+    if not all(oks):
+        raise RuntimeError('a kernel disagrees with its plain version on the '
+                           'fine-tune path')
+
+    # timed: two full-window samples, then three streamed frames
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    full_t, stream_t = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        full(det_batch)
+        torch.cuda.synchronize()
+        full_t.append(time.perf_counter() - t0)
+    full_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    stream.reset()
+    for b_k, meta in frames:
+        t0 = time.perf_counter()
+        stream(b_k, meta)
+        torch.cuda.synchronize()
+        stream_t.append(time.perf_counter() - t0)
+    stream_peak = torch.cuda.max_memory_allocated()
+    ft, stt = sum(full_t) / len(full_t), sum(stream_t) / len(stream_t)
+    print(f'fine-tune eval (vidar_finetune_1_8_nusc_3future f32, bs {bs}, '
+          f'{q}+1 frames x {cams} cams {ih}x{iw}, 900 queries, 200x200 BEV, '
+          f'6 encoder layers): full window '
+          f'{" ".join(f"{t:.4f}" for t in full_t)} s -> {ft:.4f} s/sample, '
+          f'peak memory {full_peak / 2**30:.2f} GiB; streaming '
+          f'{" ".join(f"{t:.4f}" for t in stream_t)} s -> {stt:.4f} s/frame, '
+          f'peak memory {stream_peak / 2**30:.2f} GiB on {card}', flush=True)
+    del full, stream, samples
+
+    # -- phase 7: the fine-tune train step at the same shapes
+    torch.cuda.empty_cache()
+    det_step = DetTrainStep(det, make_optimizer(det, device=dev),
+                            generator=torch.Generator(device=dev).manual_seed(
+                                6), device=dev)
+    before = [p.detach().clone() for p in det.parameters()]
+    keepers = {k.name: _Keeper(_det_msda_case if k is msda.BACKWARD
+                               else lambda a: 'det_encoder')
+               for k in backward_kernels}
+    t0 = time.perf_counter()
+    metrics, det_train_launches = _run_counted(
+        counted, keepers, lambda: det_step(det_batch))
+    warm_s = time.perf_counter() - t0
+    print(f'fine-tune train step 1 (incl. warm-up): {warm_s:.3f} s; '
+          f'launches {json.dumps(det_train_launches)}; metrics '
+          f'{json.dumps(metrics)}', flush=True)
+    for k in det_kernels + backward_kernels:
+        if det_train_launches[k.name] <= 0:
+            raise RuntimeError(f'kernel {k.name} never launched in the '
+                               f'fine-tune train step')
+    if det_train_launches[dcn.KERNEL.name]:
+        raise RuntimeError('the f32 fine-tune train step ran K2')
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise RuntimeError('non-finite fine-tune train metrics')
+    if not metrics['grad_norm'] > 0:
+        raise RuntimeError('zero gradient norm in the fine-tune step')
+    moved = sum(bool((p.detach() != b0).any())
+                for p, b0 in zip(det.parameters(), before))
+    del before
+    print(f'parameters moved: {moved} of {len(list(det.parameters()))}',
+          flush=True)
+    if moved == 0:
+        raise RuntimeError('the fine-tune step moved no parameter')
+
+    # small-input fine-tune train check: the train forward (dropout and
+    # grid mask off), the Hungarian-matched losses and their gradients
+    sides = []
+    for m, d in ((tiny, dev), (tiny_cpu, 'cpu')):
+        m.zero_grad(set_to_none=True)
+        b_d = sdb.to(d)
+        losses = m.loss(m(b_d.frames, train=True), b_d.gt_bboxes,
+                        b_d.gt_labels, b_d.num_valid_gt)
+        sum(losses.values()).backward()
+        grads = {n: (p.grad if p.grad is not None else
+                     torch.zeros_like(p)).float().cpu()
+                 for n, p in m.named_parameters()}
+        sides.append(({k: float(x.detach()) for k, x in losses.items()},
+                      grads))
+    (lg, gg), (lc, gc) = sides
+    loss_err = max(abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-6) for k in lc)
+    flat_g = torch.cat([g.reshape(-1) for g in gg.values()])
+    flat_c = torch.cat([g.reshape(-1) for g in gc.values()])
+    cos = torch.nn.functional.cosine_similarity(flat_g, flat_c, 0).item()
+    biggest = max(float(g.norm()) for g in gc.values())
+    per_tensor = {n: torch.nn.functional.cosine_similarity(
+        gg[n].reshape(-1), gc[n].reshape(-1), 0).item()
+        for n in gc if float(gc[n].norm()) > 1e-3 * biggest}
+    worst = min(per_tensor, key=per_tensor.get)
+    print(f'small input fine-tune train (tiny, 64x64, f32), card vs CPU '
+          f'plain: losses max rel diff {loss_err:.3g}; gradient cosine '
+          f'{cos:.6f} (flattened), min per tensor {per_tensor[worst]:.5f} '
+          f'({worst}, {len(per_tensor)} tensors)', flush=True)
+    # f32 on both sides: the same assignment, sums in other orders (and
+    # the backward kernels' atomics)
+    if loss_err > 1e-3 or cos < 0.999 or per_tensor[worst] < 0.99:
+        raise RuntimeError('small-input fine-tune train step disagrees with '
+                           'the CPU')
+    del tiny, tiny_cpu, sides, gg, gc
+
+    # the backward kernels on the fine-tune step's f32 inputs (K5 at each
+    # of its attentions), against autograd of the plain forward
+    kept = sorted(keepers[msda.BACKWARD.name].inputs)
+    if kept != ['det_decoder', 'det_sca', 'det_tsa']:
+        raise RuntimeError(f'the fine-tune step ran K5 for {kept} only')
+    oks = compare_backwards(keepers, 'det_encoder', det_train_launches)
+    keepers.clear()
+    if not all(oks):
+        raise RuntimeError('a backward kernel disagrees with its plain '
+                           'version on the fine-tune path')
+
+    # two timed steps; then one with the host's Hungarian calls timed on
+    # their own (a synchronisation before each)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        metrics = det_step(det_batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise RuntimeError('non-finite metrics in the timed fine-tune steps')
+    lap_host = bbox_core.hungarian_assign
+    lap_s = []
+
+    def timed_lap(cost, n_valid):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = lap_host(cost, n_valid)
+        lap_s.append(time.perf_counter() - t0)
+        return out
+
+    bbox_core.hungarian_assign = timed_lap
+    try:
+        det_step(det_batch)
+    finally:
+        bbox_core.hungarian_assign = lap_host
+    st = sum(times) / len(times)
+    print(f'fine-tune train step (f32, bs {bs}, {q}+1 frames x {cams} cams '
+          f'{ih}x{iw}, {n_gt} GT boxes of {max_gt}): '
+          f'{" ".join(f"{t:.4f}" for t in times)} s -> {st:.4f} s/it; '
+          f'peak memory {peak / 2**30:.2f} GiB; loss {metrics["loss"]:.5f}, '
+          f'grad_norm {metrics["grad_norm"]:.5g}; Hungarian on the host: '
+          f'{len(lap_s)} calls, {1e3 * sum(lap_s):.2f} ms per step (copy + '
+          f'scipy, after a synchronisation) on {card}', flush=True)
+
+    for r in results:
+        base = r['name'].split('[')[0]
+        r.setdefault('train_launches', train_launches[base])
+        r['det_eval_launches'] = det_launches[base]
+        r['det_train_launches'] = det_train_launches[base]
     print(json.dumps({'kernels': results}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

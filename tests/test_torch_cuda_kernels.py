@@ -90,6 +90,75 @@ def test_dcn_kernel_matches_plain(dev, c, co):
     assert err <= 1e-3 * want.abs().max().item(), err
 
 
+@pytest.mark.parametrize('c', [256, 512])
+def test_dcn_sample_kernel_matches_plain(dev, c):
+    rng = np.random.default_rng(8)
+    b, h, w = 2, 13, 21
+    q = h * w
+    x = _t(rng.standard_normal((b, h, w, c)), dev)
+    gy, gx = np.meshgrid(np.arange(h), np.arange(w), indexing='ij')
+    k = np.arange(3) - 1.0
+    ky, kx = np.meshgrid(k, k, indexing='ij')
+    sy = (gy.reshape(1, q, 1) + ky.reshape(1, 1, 9) +
+          rng.normal(0, 1.5, (b, q, 9)))
+    sx = (gx.reshape(1, q, 1) + kx.reshape(1, 1, 9) +
+          rng.normal(0, 1.5, (b, q, 9)))
+    # the zero ring and beyond: one corner on the map and one off, exact
+    # edges, samples wholly off the map
+    sx[0, 0] = [-1.0, -0.5, -0.25, 0.0, w - 1.0, w - 0.75, w - 0.5, w, -3.0]
+    sy[0, 0] = [0.5, h - 0.5, -0.5, h - 1.0, -1.0, 2.0, h + 0.25, 1.0, -2.0]
+    mask = _t(rng.uniform(size=(b, q, 9)), dev)
+    sx, sy = _t(sx, dev), _t(sy, dev)
+    before = dcn.SAMPLE.launches
+    got = dcn.dcn_sample_cuda(x, sx, sy, mask)
+    want = dcn.dcn_sample_plain(x, sx, sy, mask)
+    torch.cuda.synchronize()
+    assert dcn.SAMPLE.launches == before + 1
+    # the plain version's products and sum order, without FMAs
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err
+    assert not bool(got[0, 0, 8].any())
+
+
+def test_dcn_sample_kernel_rejects_misaligned_x(dev):
+    """K9 reads x as float4: a contiguous view that starts off a 16-byte
+    boundary is refused before the launch, with no sticky CUDA error."""
+    x = torch.randn(1 * 3 * 4 * 8 + 1, device=dev)[1:].view(1, 3, 4, 8)
+    sx = torch.rand(1, 12, 9, device=dev) * 3
+    sy, mask = sx.clone(), torch.ones_like(sx)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    before = dcn.SAMPLE.launches
+    with pytest.raises(ValueError, match='16-byte'):
+        dcn.dcn_sample_cuda(x, sx, sy, mask)
+    assert dcn.SAMPLE.launches == before
+    torch.cuda.synchronize()
+    want = dcn.dcn_sample_plain(x, sx, sy, mask)
+    got = dcn.dcn_sample_cuda(x.clone(), sx, sy, mask)
+    torch.cuda.synchronize()
+    assert dcn.SAMPLE.launches == before + 1
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+def test_f32_deform_conv_launches_dcn_sample(dev):
+    """An f32 DeformConv2d on CUDA tensors runs K9 (and no K2); a bf16 one
+    runs K2."""
+    from vidar_tpu_torch.models.resnet import DeformConv2d
+    torch.manual_seed(0)
+    mod = DeformConv2d(256, 256, device=dev)
+    for p in mod.parameters():
+        torch.nn.init.normal_(p, std=0.02)
+    x = torch.randn(1, 256, 9, 11, device=dev).contiguous(
+        memory_format=torch.channels_last)
+    counts = (dcn.SAMPLE.launches, dcn.KERNEL.launches)
+    with torch.inference_mode():
+        out = mod(x)
+        mod(x.to(torch.bfloat16))
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and bool(torch.isfinite(out).all())
+    assert (dcn.SAMPLE.launches, dcn.KERNEL.launches) == (counts[0] + 1,
+                                                          counts[1] + 1)
+
+
 def _geometry(h, w, g, dev):
     from vidar_tpu_torch.models.latent_rendering import ray_geometry
     return ray_geometry(h, w, g, 0.5, dev)

@@ -39,7 +39,7 @@ def test_plain_matches_dcn_conv16_kernel():
     # conv kernel permuted to match; the port takes the natural order
     perm = np.asarray(dcn_pallas.dcn16_channel_perm(c))
     kperm = kernel.reshape(9, c, co)[:, perm].reshape(9 * c, co)
-    want = np.asarray(dcn_pallas.dcn_conv16(
+    want = np.asarray(jax.jit(dcn_pallas.dcn_conv16)(
         jnp.asarray(x), jnp.asarray(sx), jnp.asarray(sy), jnp.asarray(mask),
         jnp.asarray(kperm)))
     got = dcn.dcn_conv(torch.from_numpy(x).to(torch.bfloat16),
@@ -63,7 +63,7 @@ def test_module_matches_jax_xla_path_f32():
     params = jax.tree_util.tree_map(
         lambda s: (rng.standard_normal(s.shape) * 0.05).astype(np.float32),
         shapes)
-    want = np.asarray(mod.apply(params, jnp.asarray(x)))
+    want = np.asarray(jax.jit(mod.apply)(params, jnp.asarray(x)))
     port = DeformConv2d(c, co)
     port.load_state_dict(state_dict_from_jax(params), strict=True)
     with torch.inference_mode():

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from vidar_tpu.ops.dcn_pallas import _dcn_conv16_vbwd, dcn16_channel_perm
@@ -45,6 +46,10 @@ def _inputs(seed, b=2, h=5, w=7, c=8, co=16):
     return [np.asarray(a, np.float32) for a in (x, sx, sy, mask, weight, g)]
 
 
+# one compile for both chunk sizes' (identical) JAX references
+_JAX_BACKWARD = jax.jit(_dcn_conv16_vbwd)
+
+
 def _close(got, want, tol, what):
     got = np.asarray(got, np.float64)
     want = np.asarray(want, np.float64)
@@ -60,7 +65,7 @@ def test_backward_matches_jax(chunk):
     kperm = weight.reshape(9, c, -1)[:, perm].reshape(9 * c, -1)
     res = (jnp.asarray(x, jnp.bfloat16), jnp.asarray(sx), jnp.asarray(sy),
            jnp.asarray(mask), jnp.asarray(kperm, jnp.bfloat16))
-    jdx, jdsx, jdsy, jdmask, jdkp = _dcn_conv16_vbwd(res, jnp.asarray(g))
+    jdx, jdsx, jdsy, jdmask, jdkp = _JAX_BACKWARD(res, jnp.asarray(g))
 
     t = lambda a: torch.from_numpy(a.copy())
     dx, dsx, dsy, dmask, dw = dcn.dcn_conv_backward(

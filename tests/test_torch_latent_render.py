@@ -48,8 +48,10 @@ def test_first_hit_matches_fused_and_xla(act, dtype):
     occ = jnp.asarray(rng.normal(size=(1, H, W, 4)).astype(np.float32))
     occ = occ.astype(getattr(jnp, dtype))
     (grids, rn, steps), geo = _geometry()
-    fused = np.asarray(jlr._first_hit_fused_impl(occ, grids, rn, steps, act))
-    xla = np.asarray(jlr._first_hit_xla(occ, grids, rn, steps, act, 4096))
+    fused = np.asarray(jax.jit(jlr._first_hit_fused_impl, static_argnums=4)(
+        occ, grids, rn, steps, act))
+    xla = np.asarray(jax.jit(jlr._first_hit_xla, static_argnums=(4, 5))(
+        occ, grids, rn, steps, act, 4096))
     got = latent_render.ray_first_hit(
         torch.from_numpy(np.array(occ.astype(jnp.float32))).to(
             getattr(torch, dtype)), *geo, act).numpy()
@@ -64,15 +66,16 @@ def test_aggregate_matches_fused_and_xla(c_r, z):
     fused_map = jnp.asarray(
         rng.uniform(0.1, 1.0, (1, H, W, c_r + z)).astype(np.float32))
     (grids, rn, steps), geo = _geometry()
-    xla = np.asarray(jlr._aggregate_xla(fused_map, grids, rn, steps, c_r, z,
-                                        1e-3, 4096))
+    xla = np.asarray(jax.jit(jlr._aggregate_xla,
+                             static_argnums=(4, 5, 6, 7))(
+        fused_map, grids, rn, steps, c_r, z, 1e-3, 4096))
     got = latent_render.ray_aggregate(torch.from_numpy(np.array(
         fused_map)), *geo, c_r, z, 1e-3).numpy()
     np.testing.assert_allclose(got, xla, rtol=0, atol=ATOL)
     if c_r == z:
         # the Pallas pass takes group 1 only (latent_rendering.py:477-484)
-        num, den = jlr._aggregate_fused_partials(fused_map, grids, rn, steps,
-                                                 c_r)
+        num, den = jax.jit(jlr._aggregate_fused_partials, static_argnums=4)(
+            fused_map, grids, rn, steps, c_r)
         fused = np.asarray(num / (den + 1e-3))
         np.testing.assert_allclose(got, fused, rtol=0, atol=ATOL)
 
@@ -83,8 +86,9 @@ def test_latent_rendering_module_matches_jax():
     rng = np.random.default_rng(5)
     embed = rng.standard_normal((1, H, W, 32)).astype(np.float32)
     mod = jlr.LatentRendering(**cfg)
-    params = mod.init(jax.random.PRNGKey(0), jnp.asarray(embed))
-    want = np.asarray(mod.apply(params, jnp.asarray(embed)))
+    # jitted: one compile each, not one per operation
+    params = jax.jit(mod.init)(jax.random.PRNGKey(0), jnp.asarray(embed))
+    want = np.asarray(jax.jit(mod.apply)(params, jnp.asarray(embed)))
     port = LatentRendering(**cfg)
     port.load_state_dict(state_dict_from_jax(params), strict=True)
     with torch.inference_mode():

@@ -37,6 +37,13 @@ def _jax_geometry():
     return grids, rn, steps
 
 
+def _jax_vjp(fn, x, g):
+    """The vjp of fn at x against g, jitted: one compile, not one per
+    operation."""
+    return jax.jit(lambda x, g: jax.vjp(fn, x)[1](g)[0])(jnp.asarray(x),
+                                                           jnp.asarray(g))
+
+
 def _check(got, want, what):
     want = np.asarray(want)
     err = np.abs(got - want).max()
@@ -55,9 +62,8 @@ def test_first_hit_grad_matches_jax(case):
         occ[0, 6, :, 2] = 40.0
     g = rng.normal(size=(1, H * W, 4)).astype(np.float32)
     grids, rn, steps = _jax_geometry()
-    _, vjp = jax.vjp(lambda o: jlr._first_hit_xla(o, grids, rn, steps, act,
-                                                  4096), jnp.asarray(occ))
-    (want,) = vjp(jnp.asarray(g))
+    want = _jax_vjp(lambda o: jlr._first_hit_xla(o, grids, rn, steps, act,
+                                                 4096), occ, g)
 
     t_occ = torch.from_numpy(occ.copy()).requires_grad_()
     out = latent_render.ray_first_hit(t_occ, *ray_geometry(H, W, G, 0.5,
@@ -77,10 +83,8 @@ def test_aggregate_grad_matches_jax(c_r, z):
                                np.float32)
     g = rng.normal(size=(1, H * W, c_r)).astype(np.float32)
     grids, rn, steps = _jax_geometry()
-    _, vjp = jax.vjp(lambda f: jlr._aggregate_xla(f, grids, rn, steps, c_r,
-                                                  z, 1e-3, 4096),
-                     jnp.asarray(fmap))
-    (want,) = vjp(jnp.asarray(g))
+    want = _jax_vjp(lambda f: jlr._aggregate_xla(f, grids, rn, steps, c_r,
+                                                 z, 1e-3, 4096), fmap, g)
 
     t_map = torch.from_numpy(fmap.copy()).requires_grad_()
     out = latent_render.ray_aggregate(

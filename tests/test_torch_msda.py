@@ -7,10 +7,11 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from vidar_tpu.ops import msda as jax_msda
-from vidar_tpu.ops import msdeform_attn
+from vidar_tpu.ops import msda_pallas, msdeform_attn
 from vidar_tpu.ops.msda_pallas import msda_gather_fused16, pack_atlas16
 
 from vidar_tpu_torch.ops import msda
@@ -21,6 +22,11 @@ LEVELS = {
 }
 # f32 sums of <= 32 samples x 4 corners, taken in another order
 ATOL = 1e-4
+# The kernels' query tile. In interpret mode each tile's row gathers are
+# unrolled into the trace (qt x samples of them), so a small tile keeps the
+# compile short; every query is computed alone, so the function is the same
+# for any tile.
+QT = 8
 
 
 def _inputs(shapes, seed, b=2, heads=2, q=37, p=4, dim=32):
@@ -49,9 +55,13 @@ def test_plain_matches_fused_kernel_f32(levels, monkeypatch):
     real = jax_msda._msda_fused
     monkeypatch.setattr(jax_msda, '_msda_fused',
                         lambda *a: calls.append(1) or real(*a))
-    want = np.asarray(msdeform_attn(jnp.asarray(value), shapes,
-                                    jnp.asarray(loc), jnp.asarray(w),
-                                    impl='fused'))
+    kernel = msda_pallas.msda_gather_fused
+    monkeypatch.setattr(msda_pallas, 'msda_gather_fused',
+                        lambda *a, **kw: kernel(*a, **kw, qt=QT))
+    # under jax.jit: one compile, not one per operation
+    want = np.asarray(jax.jit(
+        lambda v, lo, aw: msdeform_attn(v, shapes, lo, aw, impl='fused'))(
+            jnp.asarray(value), jnp.asarray(loc), jnp.asarray(w)))
     assert calls, 'the fused kernel was bypassed'
     got = _port(value, shapes, loc, w)
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
@@ -59,28 +69,34 @@ def test_plain_matches_fused_kernel_f32(levels, monkeypatch):
 
 def _fused16(v16, shapes, loc, w):
     """``_msda_fused_fwd_impl``'s whole-level path with the row-pair u32
-    tables, run through ``msda_gather_fused16`` in interpret mode."""
+    tables, run through ``msda_gather_fused16`` in interpret mode, under
+    jax.jit (one compile, not one per operation)."""
     b, q, heads = loc.shape[:3]
-    levels = jax_msda._split_levels(v16, shapes)
-    cache = jax_msda._packed_cache(levels, shapes, set(range(len(shapes))),
-                                   dtype=jnp.bfloat16)
-    tables, table_rows = {}, {}
-    for lvl, (h, wd) in enumerate(shapes):
-        pk = cache[lvl].reshape(b * heads, (h + 1) * (wd + 1), -1)
-        pk = jnp.pad(pk, ((0, 0), (0, (-pk.shape[1]) % 8), (0, 0)))
-        tables[lvl] = pack_atlas16(pk)
-        table_rows[lvl] = 2 * tables[lvl].shape[1]
-    out = None
-    for entries in jax_msda._fused_plan(shapes, packed16=True):
-        atlas, row_idx, wx1, wy1, aw = jax_msda._prep_group_fwd(
-            tables, table_rows, shapes, jnp.asarray(loc), jnp.asarray(w),
-            entries, 256)
-        part = msda_gather_fused16(atlas, row_idx, wx1, wy1, aw,
-                                   q_block=256, interpret=True)
-        out = part if out is None else out + part
-    dim = out.shape[1]
-    return np.asarray(out[:, :, :q].reshape(b, heads, dim, q).transpose(
-        0, 3, 1, 2).reshape(b, q, heads * dim))
+
+    @jax.jit
+    def run(v16, loc, w):
+        levels = jax_msda._split_levels(v16, shapes)
+        cache = jax_msda._packed_cache(levels, shapes,
+                                       set(range(len(shapes))),
+                                       dtype=jnp.bfloat16)
+        tables, table_rows = {}, {}
+        for lvl, (h, wd) in enumerate(shapes):
+            pk = cache[lvl].reshape(b * heads, (h + 1) * (wd + 1), -1)
+            pk = jnp.pad(pk, ((0, 0), (0, (-pk.shape[1]) % 8), (0, 0)))
+            tables[lvl] = pack_atlas16(pk)
+            table_rows[lvl] = 2 * tables[lvl].shape[1]
+        out = None
+        for entries in jax_msda._fused_plan(shapes, packed16=True):
+            atlas, row_idx, wx1, wy1, aw = jax_msda._prep_group_fwd(
+                tables, table_rows, shapes, loc, w, entries, 256)
+            part = msda_gather_fused16(atlas, row_idx, wx1, wy1, aw,
+                                       q_block=256, interpret=True, qt=QT)
+            out = part if out is None else out + part
+        dim = out.shape[1]
+        return out[:, :, :q].reshape(b, heads, dim, q).transpose(
+            0, 3, 1, 2).reshape(b, q, heads * dim)
+
+    return np.asarray(run(v16, jnp.asarray(loc), jnp.asarray(w)))
 
 
 @pytest.mark.parametrize('levels', sorted(LEVELS))
@@ -99,9 +115,9 @@ def test_plain_matches_xla_small_head_dim():
     """Head dims below 32 (the small configs) against the XLA path."""
     shapes = LEVELS['4levels']
     value, loc, w = _inputs(shapes, seed=3, dim=4)
-    want = np.asarray(msdeform_attn(jnp.asarray(value), shapes,
-                                    jnp.asarray(loc), jnp.asarray(w),
-                                    impl='plain'))
+    want = np.asarray(jax.jit(
+        lambda v, lo, aw: msdeform_attn(v, shapes, lo, aw, impl='plain'))(
+            jnp.asarray(value), jnp.asarray(loc), jnp.asarray(w)))
     got = _port(value, shapes, loc, w)
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
 

@@ -56,7 +56,8 @@ def test_grads_match_jax(levels):
         out = msdeform_attn(v, shapes, lo, aw)
         return jnp.sum(out * jnp.asarray(g))
 
-    want = jax.grad(jax_obj, argnums=(0, 1, 2))(
+    # jitted: one compile of the whole gradient, not one per operation
+    want = jax.jit(jax.grad(jax_obj, argnums=(0, 1, 2)))(
         jnp.asarray(value), jnp.asarray(loc), jnp.asarray(w))
 
     leaves = [torch.from_numpy(a.copy()).requires_grad_()

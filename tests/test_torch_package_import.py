@@ -1,5 +1,6 @@
 """``vidar_tpu_torch`` and every submodule import with JAX and flax
-blocked, and neither they nor the JAX package are imported by the port."""
+blocked, and neither they nor the JAX package are imported by the port or
+by ``chip_smoke.py``."""
 
 import pathlib
 import re
@@ -45,6 +46,6 @@ def test_presets_equal_the_jax_packages():
 def test_sources_name_no_jax():
     pattern = re.compile(r'^\s*(import|from)\s+(jax|flax|vidar_tpu)\b',
                          re.M)
-    offenders = [str(p) for p in PKG.rglob('*.py')
-                 if pattern.search(p.read_text())]
+    sources = sorted(PKG.rglob('*.py')) + [ROOT / 'chip_smoke.py']
+    offenders = [str(p) for p in sources if pattern.search(p.read_text())]
     assert not offenders, offenders

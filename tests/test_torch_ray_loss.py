@@ -61,9 +61,10 @@ def _torch_rays(sigma, origin, gt, frame_idx, chunk=None):
 
 def test_waypoint_features_match_jax(rays):
     sigma, origin, gt, frame_idx, _, _ = rays
-    want = jrl.ray_waypoint_features(jnp.asarray(sigma), jnp.asarray(origin),
-                                     jnp.asarray(gt), jnp.asarray(frame_idx),
-                                     G, 0.5)
+    # jitted: one compile of the reference, not one per operation
+    want = jax.jit(jrl.ray_waypoint_features, static_argnums=(4, 5))(
+        jnp.asarray(sigma), jnp.asarray(origin), jnp.asarray(gt),
+        jnp.asarray(frame_idx), G, 0.5)
     _, got = _torch_rays(sigma, origin, gt, frame_idx)
     _close(got.feats.detach(), want.feats, 'feats')
     _close(got.lengths, want.lengths, 'lengths')
@@ -87,7 +88,7 @@ def test_losses_and_grads_match_jax(rays, loss):
                                         None)
         return jnp.sum(d * jnp.asarray(gcot))
 
-    want, want_g = jax.value_and_grad(jax_loss)(jnp.asarray(sigma))
+    want, want_g = jax.jit(jax.value_and_grad(jax_loss))(jnp.asarray(sigma))
     # 64-ray chunks: the checkpointed chunk loop is differentiated too
     s, r = _torch_rays(sigma, origin, gt, frame_idx, chunk=64)
     if loss == 'ce':
@@ -124,9 +125,9 @@ def test_chamfer_matches_jax(empty_dst):
                                          jnp.asarray(dst_mask), tile=256)
         return l_src + 2.0 * l_dst, (l_src, l_dst)
 
-    (_, (want_s, want_d)), (ga, gb) = jax.value_and_grad(
-        jax_obj, argnums=(0, 1), has_aux=True)(jnp.asarray(src),
-                                               jnp.asarray(dst))
+    (_, (want_s, want_d)), (ga, gb) = jax.jit(jax.value_and_grad(
+        jax_obj, argnums=(0, 1), has_aux=True))(jnp.asarray(src),
+                                                jnp.asarray(dst))
     a = torch.from_numpy(src.copy()).requires_grad_()
     b = torch.from_numpy(dst.copy()).requires_grad_()
     l_src, l_dst, _, _ = chamfer_distance_masked(

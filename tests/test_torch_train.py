@@ -271,10 +271,15 @@ def test_optimizer_clips_like_optax():
     grads = [jax.tree.map(lambda x: np.asarray(
         rng.normal(size=x.shape) * 30, np.float32), w) for _ in range(2)]
     tx, _ = jax_make_optimizer(w, warmup_iters=2)
+
+    @jax.jit
+    def update(g, state, p):
+        upd, state = tx.update(g, state, p)
+        return optax.apply_updates(p, upd), state
+
     state, jw = tx.init(w), w
     for g in grads:
-        upd, state = tx.update(g, state, jw)
-        jw = optax.apply_updates(jw, upd)
+        jw, state = update(g, state, jw)
 
     model = torch.nn.Module()
     model.a = torch.nn.Parameter(torch.from_numpy(w['a'].copy()))

@@ -1,5 +1,6 @@
-"""vidar_tpu_torch: the ViDAR forecast path and pre-training step in
-PyTorch, with hand-written CUDA kernels for NVIDIA Hopper (``csrc/``).
+"""vidar_tpu_torch: the ViDAR forecast path, its pre-training step and the
+BEVFormer detection fine-tune in PyTorch, with hand-written CUDA kernels
+for NVIDIA Hopper (``csrc/``).
 
 A port of the JAX package ``vidar_tpu`` (the reference, kept beside it).
 Importing this package imports neither JAX nor flax and builds nothing: the

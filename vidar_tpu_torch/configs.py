@@ -1,8 +1,9 @@
-"""The presets of vidar_tpu/configs.py that the port runs, as plain dicts.
+"""The presets of vidar_tpu/configs.py that the port runs, and the model of
+the fine-tune config, as plain dicts.
 
 Kept here so that the port and ``chip_smoke.py`` import nothing of the JAX
 package; ``tests/test_torch_package_import.py`` holds them equal to the JAX
-package's presets.
+package's presets and to the config file.
 """
 
 from __future__ import annotations
@@ -83,3 +84,48 @@ def vidar_dryrun(**overrides) -> Dict[str, Any]:
     """``vidar_tiny`` with one encoder and one decoder layer."""
     return vidar_tiny(encoder_num_layers=1, decoder_num_layers=1,
                       latent_render_lids=(0,), **overrides)
+
+
+def vidar_finetune_1_8_nusc_3future(**overrides) -> Dict[str, Any]:
+    """The BEVFormer detection fine-tune: the ``model`` dict of
+    configs/vidar_finetune/nusc_1_4_subset/vidar_1_8_nusc_3future.py:22-41
+    without its ``type``."""
+    cfg = dict(
+        embed_dims=256,
+        bev_h=200,
+        bev_w=200,
+        pc_range=POINT_CLOUD_RANGE,
+        num_cams=6,
+        num_classes=10,
+        num_query=900,
+        backbone_depth=101,
+        backbone_dcn=(False, False, True, True),
+        frozen_stages=1,
+        use_grid_mask=True,
+        backwarded_prev_frame_num=1,
+        encoder_num_layers=6,
+        latent_render_lids=(2,),
+        latent_render_cfg=dict(LATENT_RENDER_CFG),
+    )
+    cfg.update(overrides)
+    return cfg
+
+
+def vidar_finetune_tiny(**overrides) -> Dict[str, Any]:
+    """The fine-tune at test size: ``TINY`` of the JAX package's fine-tune
+    smoke (tests/e2e/test_finetune_smoke.py:16-30), ResNet-50 at full
+    width."""
+    cfg = vidar_finetune_1_8_nusc_3future(
+        embed_dims=32,
+        bev_h=12,
+        bev_w=12,
+        num_cams=3,
+        num_query=24,
+        backbone_depth=50,
+        encoder_num_layers=2,
+        latent_render_lids=(1,),
+        latent_render_cfg=dict(pred_height=4, grid_num=8, grid_step=0.5,
+                               reduction=8, act='sigmoid', embed_dims=32),
+    )
+    cfg.update(overrides)
+    return cfg

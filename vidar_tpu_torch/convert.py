@@ -1,5 +1,6 @@
-"""Weight bridge: a JAX/flax ``ViDAR`` parameter tree -> a state dict that
-``vidar_tpu_torch.models.ViDAR`` loads with ``strict=True``.
+"""Weight bridge: a JAX/flax ``ViDAR`` or ``BEVFormer`` parameter tree -> a
+state dict that the port's model of the same name loads with
+``strict=True``.
 
 The port names its modules after the flax modules, so a key is the flax
 path joined by dots, with the leaf renamed and transformed:
@@ -7,6 +8,10 @@ path joined by dots, with the leaf renamed and transformed:
 * ``kernel`` of a conv, HWIO -> ``weight`` OIHW;
 * ``kernel`` of a deformable conv (the module holding a ``conv_offset``),
   [(ky kx cin), out] -> ``kernel`` unchanged (the layout K2 takes);
+* the DenseGeneral ``kernel``s of flax's multi-head attention, ``query``,
+  ``key``, ``value`` [in, heads, head_dim] and ``out`` [heads, head_dim,
+  out], flattened to [in, out] first, and their [heads, head_dim] biases
+  flattened;
 * any other ``kernel`` (a Dense), [in, out] -> ``weight`` [out, in];
 * ``scale``/``bias`` of a frozen BatchNorm (``bn*``, ``downsample_bn``)
   -> the buffers ``scale``/``bias``;
@@ -33,7 +38,13 @@ def _leaf(parent: Mapping, path, name: str, arr: np.ndarray):
             return 'weight', arr.transpose(3, 2, 0, 1)
         if 'conv_offset' in parent:
             return 'kernel', arr
+        if arr.ndim == 3:          # DenseGeneral of an attention block
+            flat = (arr.reshape(-1, arr.shape[-1]) if path[-1] == 'out'
+                    else arr.reshape(arr.shape[0], -1))
+            return 'weight', flat.T
         return 'weight', arr.T
+    if name == 'bias' and arr.ndim == 2:
+        return 'bias', arr.reshape(-1)
     if name == 'scale' and not (path and _FROZEN_BN.match(path[-1])):
         return 'weight', arr
     return name, arr

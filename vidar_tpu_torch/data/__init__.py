@@ -1,6 +1,7 @@
-"""Batch structure and synthetic batches of the port."""
+"""Batch structures and synthetic batches of the port."""
 
-from .structures import ViDARBatch
-from .synthetic import make_synthetic_batch
+from .structures import DetBatch, ViDARBatch
+from .synthetic import make_synthetic_batch, make_synthetic_det_batch
 
-__all__ = ['ViDARBatch', 'make_synthetic_batch']
+__all__ = ['DetBatch', 'ViDARBatch', 'make_synthetic_batch',
+           'make_synthetic_det_batch']

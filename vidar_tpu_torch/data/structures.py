@@ -1,5 +1,6 @@
-"""The forecast batch (port of vidar_tpu/data/structures.py:ViDARBatch): a
-plain dataclass of tensors, every meta precomputed on the host.
+"""The forecast batch and the detection batch (port of
+vidar_tpu/data/structures.py: ViDARBatch, DetBatch): plain dataclasses of
+tensors, every meta precomputed on the host.
 
 Frame window: history frames 0..Hq-1, current frame Hq, futures Hq+1..;
 camera frames cover T = Hq + 1 frames.
@@ -35,3 +36,19 @@ class ViDARBatch:
     def to(self, device) -> 'ViDARBatch':
         return ViDARBatch(**{f.name: getattr(self, f.name).to(device)
                              for f in dataclasses.fields(self)})
+
+
+@dataclasses.dataclass
+class DetBatch:
+    """Fine-tune detection sample: the camera-stream batch plus statically
+    padded 3D GT boxes."""
+    frames: ViDARBatch
+    gt_bboxes: torch.Tensor       # [bs, G, 9] (cx cy cz w l h rot vx vy)
+    gt_labels: torch.Tensor       # [bs, G] int32; padding entries arbitrary
+    num_valid_gt: torch.Tensor    # [bs] int32
+
+    def to(self, device) -> 'DetBatch':
+        return DetBatch(frames=self.frames.to(device),
+                        gt_bboxes=self.gt_bboxes.to(device),
+                        gt_labels=self.gt_labels.to(device),
+                        num_valid_gt=self.num_valid_gt.to(device))

@@ -1,7 +1,9 @@
-"""Synthetic forecast batches (port of vidar_tpu/data/synthetic.py).
+"""Synthetic forecast and detection batches (port of
+vidar_tpu/data/synthetic.py, and of the detection batch of
+tests/e2e/test_finetune_smoke.py:33-48).
 
-The numpy generator is consumed in the same order as the JAX package's
-``make_synthetic_batch``, so one seed gives identical arrays in both.
+The numpy generator is consumed in the same order as the JAX package's, so
+one seed gives identical arrays in both.
 """
 
 from __future__ import annotations
@@ -10,7 +12,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .structures import ViDARBatch
+from .structures import DetBatch, ViDARBatch
 
 
 def _ring_lidar2img(num_cams: int, img_h: int, img_w: int) -> np.ndarray:
@@ -114,3 +116,33 @@ def make_synthetic_batch(rng: np.random.Generator, *, bs=1, queue_length=4,
         gt_points=tensor(gt_points, np.float32),
         gt_tindex=tensor(gt_tindex, np.int32),
     )
+
+
+def make_synthetic_det_batch(rng: np.random.Generator, *, bs=1,
+                             queue_length=2, num_cams=3, img_h=64, img_w=64,
+                             max_points=64, max_gt=8, num_gt=3,
+                             device='cuda') -> DetBatch:
+    """A detection batch: ``make_synthetic_batch`` without futures, then
+    ``num_gt`` random boxes per sample (centres within 30 m, sizes 1-4 m,
+    any yaw, no velocity) and their labels among the 10 nuScenes classes,
+    padded to ``max_gt``; frames first, then each sample's boxes and
+    labels, in that order."""
+    frames = make_synthetic_batch(rng, bs=bs, queue_length=queue_length,
+                                  future_length=0, num_cams=num_cams,
+                                  img_h=img_h, img_w=img_w,
+                                  max_points=max_points, device=device)
+    g = num_gt
+    gt = np.zeros((bs, max_gt, 9), np.float32)
+    labels = np.zeros((bs, max_gt), np.int32)
+    for b in range(bs):
+        gt[b, :g, :2] = rng.uniform(-30, 30, (g, 2))
+        gt[b, :g, 2] = rng.uniform(-1, 1, g)
+        gt[b, :g, 3:6] = rng.uniform(1, 4, (g, 3))
+        gt[b, :g, 6] = rng.uniform(-np.pi, np.pi, g)
+        labels[b, :g] = rng.integers(0, 10, g)
+    dev = frames.images.device
+    return DetBatch(frames=frames,
+                    gt_bboxes=torch.from_numpy(gt).to(dev),
+                    gt_labels=torch.from_numpy(labels).to(dev),
+                    num_valid_gt=torch.full((bs,), g, dtype=torch.int32,
+                                            device=dev))

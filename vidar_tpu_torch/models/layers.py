@@ -109,6 +109,40 @@ class FFN(nn.Module):
         return x + self.drop(self.fc2(self.drop(torch.relu(self.fc1(x)))))
 
 
+class MultiHeadDotProductAttention(nn.Module):
+    """flax ``nn.MultiHeadDotProductAttention`` with ``qkv_features`` =
+    ``out_features`` = ``embed_dims`` and no attention dropout: the query,
+    key and value projections (flax's DenseGeneral kernels [E, heads,
+    head_dim], here ``Dense`` over the flattened heads), scaled dot products
+    by 1/sqrt(head_dim), a softmax in f32, and the output projection
+    ``out``. ``forward(inputs_q, inputs_k, inputs_v)``, [bs, L, E] each."""
+
+    def __init__(self, embed_dims: int, num_heads: int, dtype=None,
+                 device=None):
+        super().__init__()
+        self.num_heads = num_heads
+        kw = dict(dtype=dtype, device=device)
+        self.query = Dense(embed_dims, embed_dims, **kw)
+        self.key = Dense(embed_dims, embed_dims, **kw)
+        self.value = Dense(embed_dims, embed_dims, **kw)
+        self.out = Dense(embed_dims, embed_dims, **kw)
+
+    def forward(self, inputs_q, inputs_k, inputs_v):
+        bs, lq, e = inputs_q.shape
+        h = self.num_heads
+
+        def heads(proj, x):        # -> [bs, heads, L, head_dim]
+            return proj(x).reshape(bs, x.shape[1], h, e // h).transpose(1, 2)
+
+        q = heads(self.query, inputs_q)
+        k = heads(self.key, inputs_k)
+        v = heads(self.value, inputs_v)
+        q = q / (e // h) ** 0.5
+        attn = torch.softmax((q @ k.transpose(-1, -2)).float(), dim=-1)
+        out = (attn.to(v.dtype) @ v).transpose(1, 2).reshape(bs, lq, e)
+        return self.out(out)
+
+
 class LearnedPositionalEncoding(nn.Module):
     """concat(col_embed[x], row_embed[y]) -> [bs, H, W, 2*num_feats]."""
 

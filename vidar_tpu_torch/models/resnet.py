@@ -15,7 +15,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.dcn import dcn_conv
+from ..ops.dcn import dcn_conv, dcn_sample
 from .layers import Conv2d
 
 ARCH_SETTINGS = {
@@ -44,7 +44,9 @@ class DeformConv2d(nn.Module):
 
     ``conv_offset`` predicts mmcv's [o1_y, o1_x, ..., o9_y, o9_x, m1..m9]
     channels (sigmoid on the masks); ``kernel`` is [9*C, CO] with rows
-    ordered (ky, kx, cin), the layout K2 takes.
+    ordered (ky, kx, cin). A bf16 input runs the fused ``dcn_conv`` (K2 on
+    the card), an f32 input ``dcn_sample`` (K9) and a matrix product, as the
+    JAX module splits on its dtype.
     """
 
     def __init__(self, in_ch: int, features: int, dtype=None, device=None):
@@ -70,8 +72,18 @@ class DeformConv2d(nn.Module):
             b, h * w, 9)
         sx = (gx[None, :, :, None] + kx.reshape(-1) + off[..., 1]).reshape(
             b, h * w, 9)
-        out = dcn_conv(x.permute(0, 2, 3, 1), sx, sy,
-                       mask.reshape(b, h * w, 9), self.kernel.to(x.dtype))
+        x_nhwc, mask = x.permute(0, 2, 3, 1), mask.reshape(b, h * w, 9)
+        if x.dtype == torch.bfloat16:
+            out = dcn_conv(x_nhwc, sx, sy, mask, self.kernel.to(x.dtype))
+        elif x.dtype == torch.float32:
+            # the taps, then the conv product outside the kernel, in f32
+            # (vidar_tpu/models/resnet.py:137-164); the [b, h*w, 9*C] taps
+            # live only until the product is taken
+            out = torch.matmul(dcn_sample(x_nhwc, sx, sy, mask).reshape(
+                b, h * w, -1), self.kernel)
+        else:
+            raise TypeError(f'DeformConv2d: no deformable conv for {x.dtype}'
+                            f' (bfloat16 runs K2, float32 K9)')
         return out.to(x.dtype).reshape(b, h, w, -1).permute(0, 3, 1, 2)
 
 

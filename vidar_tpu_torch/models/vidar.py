@@ -46,7 +46,43 @@ def eval_mode(module: nn.Module):
         module.train(was)
 
 
-class ViDAR(nn.Module):
+class CameraModel:
+    """What ``ViDAR`` and ``BEVFormer`` share: random weights, and the image
+    features of ``img_backbone`` and ``img_neck``."""
+
+    @torch.no_grad()
+    def randomize_(self, generator: torch.Generator, scale: float = 0.02):
+        """Fill every parameter and buffer with N(0, 1) * scale drawn from
+        ``generator`` (the benchmark's random weights, bench.py:78-90)."""
+        for t in itertools.chain(self.parameters(), self.buffers()):
+            t.copy_(torch.randn(t.shape, generator=generator,
+                                device=generator.device, dtype=t.dtype)
+                    * scale)
+        return self
+
+    def backbone_forward(self, images_flat):
+        """[N, H, W, 3] -> list of [N, h, w, C] FPN maps."""
+        return self.img_neck(self.img_backbone(images_flat))
+
+    def extract_feats(self, images):
+        """[bs, T, cams, H, W, 3] -> list of [bs, T, cams, h, w, C]: one
+        batched backbone pass (serving, and the no-gradient frames)."""
+        bs, t, cams, h, w, _ = images.shape
+        feats = self.backbone_forward(images.reshape(bs * t * cams, h, w, 3))
+        return [f.reshape((bs, t, cams) + tuple(f.shape[1:])) for f in feats]
+
+    def extract_feats_cam_seq(self, images):
+        """[bs, cams, H, W, 3] -> list of [bs, cams, h, w, C] for the
+        gradient-carrying frame: one checkpointed backbone pass per camera,
+        so a camera's activations are recomputed in its own backward and
+        only one camera's are alive at a time (vidar.py:134-154)."""
+        per_cam = [checkpoint(self.backbone_forward, images[:, c],
+                              use_reentrant=False)
+                   for c in range(images.shape[1])]
+        return [torch.stack(level, dim=1) for level in zip(*per_cam)]
+
+
+class ViDAR(CameraModel, nn.Module):
     """Takes the keyword configuration of ``vidar_tpu.configs`` presets, plus
     ``use_grid_mask``, ``dtype`` (compute dtype, None = f32) and ``device``
     (the card unless the caller asks for the CPU). ``supervise_all_future``
@@ -110,21 +146,7 @@ class ViDAR(nn.Module):
             use_dist_loss=use_dist_loss, use_dense_loss=use_dense_loss,
             decoder_num_layers=decoder_num_layers, **kw)
 
-    @torch.no_grad()
-    def randomize_(self, generator: torch.Generator, scale: float = 0.02):
-        """Fill every parameter and buffer with N(0, 1) * scale drawn from
-        ``generator`` (the benchmark's random weights, bench.py:78-90)."""
-        for t in itertools.chain(self.parameters(), self.buffers()):
-            t.copy_(torch.randn(t.shape, generator=generator,
-                                device=generator.device, dtype=t.dtype)
-                    * scale)
-        return self
-
     # ------------------------------------------------------------ phases
-
-    def backbone_forward(self, images_flat):
-        """[N, H, W, 3] -> list of [N, h, w, C] FPN maps."""
-        return self.img_neck(self.img_backbone(images_flat))
 
     def encode_single(self, feats, can_bus, shift, rotate_angle, lidar2img,
                       prev_bev, prev_bev_exists, img_hw):
@@ -173,23 +195,6 @@ class ViDAR(nn.Module):
             num_rollout=num_future + 1)
 
     # ----------------------------------------------------------- training
-
-    def extract_feats(self, images):
-        """[bs, T, cams, H, W, 3] -> list of [bs, T, cams, h, w, C]: one
-        batched backbone pass (serving, and the no-gradient frames)."""
-        bs, t, cams, h, w, _ = images.shape
-        feats = self.backbone_forward(images.reshape(bs * t * cams, h, w, 3))
-        return [f.reshape((bs, t, cams) + tuple(f.shape[1:])) for f in feats]
-
-    def extract_feats_cam_seq(self, images):
-        """[bs, cams, H, W, 3] -> list of [bs, cams, h, w, C] for the
-        gradient-carrying frame: one checkpointed backbone pass per camera,
-        so a camera's activations are recomputed in its own backward and
-        only one camera's are alive at a time (vidar.py:134-154)."""
-        per_cam = [checkpoint(self.backbone_forward, images[:, c],
-                              use_reentrant=False)
-                   for c in range(images.shape[1])]
-        return [torch.stack(level, dim=1) for level in zip(*per_cam)]
 
     def encode_history(self, feats, batch, img_hw, num_history: int):
         """The frozen, deterministic recurrence over the first

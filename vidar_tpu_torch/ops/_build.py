@@ -44,6 +44,8 @@ SIGNATURES = {
     # x, sx, sy, mask, weight, out, B, H, W, C, Q, CO, stream
     'dcn_conv_forward': (_P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _P),
+    # x, sx, sy, mask, out, B, H, W, C, Q, stream
+    'dcn_sample_forward': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # occ, occ_is_bf16, grids, radial, steps, out,
     # B, H, W, Z, N, G, act_exp, stream
     'ray_first_hit_forward': (_P, _I, _P, _P, _P, _P,

@@ -1,16 +1,22 @@
-"""Modulated 3x3 deformable convolution, DCNv2 forward (port of the fused
-``dcn_conv16`` of vidar_tpu/ops/dcn_pallas.py).
+"""Modulated 3x3 deformable convolution, DCNv2 (port of the DCN ops of
+vidar_tpu/ops/dcn_pallas.py), in two forms that share one adjoint:
 
-``dcn_conv(x, sx, sy, mask, weight)`` samples x [B, H, W, C] bilinearly at
-the per-tap pixel coordinates sx/sy [B, Q, 9] (zeros off the map), scales by
-the modulation mask, rounds the taps to x's dtype and contracts them with
-the conv weight [9*C, CO] (rows ordered (ky, kx, cin)) in f32 -> [B, Q, CO]
-f32. Its forward is K2 (``csrc/dcn_conv.cu``, bf16 only) on CUDA tensors and
-``dcn_conv_plain`` on CPU tensors. Its backward, ``dcn_conv_backward``, is
-the same chunked PyTorch on both: the JAX package computes it in XLA, not
-Pallas (``_dcn_conv16_vbwd``, vidar_tpu/ops/dcn_pallas.py:743-842), so its
-matrix products go to ``torch.matmul`` and its table scatter to
-``index_add_``.
+* ``dcn_conv(x, sx, sy, mask, weight)``, the fused bf16 form: samples x
+  [B, H, W, C] bilinearly at the per-tap pixel coordinates sx/sy [B, Q, 9]
+  (zeros off the map), scales by the modulation mask, rounds the taps to x's
+  dtype and contracts them with the conv weight [9*C, CO] (rows ordered
+  (ky, kx, cin)) in f32 -> [B, Q, CO] f32. Its forward is K2
+  (``csrc/dcn_conv.cu``, bf16 only) on CUDA tensors and ``dcn_conv_plain``
+  on CPU tensors; it replaces ``dcn16_conv_gather``.
+* ``dcn_sample(x, sx, sy, mask)``, the f32 form: the masked taps alone,
+  [B, Q, 9, C] f32, the conv product left to the caller. Its forward is K9
+  (``csrc/dcn_gather.cu``) on CUDA tensors and ``dcn_sample_plain`` on CPU
+  tensors; it replaces ``dcn_gather``.
+
+Both backwards are the same chunked PyTorch on both devices: the JAX package
+computes them in XLA, not Pallas (``_dcn_conv16_vbwd``, dcn_pallas.py:743-842;
+``jax.vjp`` of ``_dcn_sample_ref``, :232-235), so their matrix products go to
+``torch.matmul`` and their table scatter to ``index_add_``.
 """
 
 from __future__ import annotations
@@ -23,6 +29,9 @@ from .gather import bilinear_corners
 KERNEL = KernelCounter(
     'dcn_conv_forward', source='vidar_tpu_torch/csrc/dcn_conv.cu',
     replaces='vidar_tpu/ops/dcn_pallas.py:652 (dcn16_conv_gather)')
+SAMPLE = KernelCounter(
+    'dcn_sample_forward', source='vidar_tpu_torch/csrc/dcn_gather.cu',
+    replaces='vidar_tpu/ops/dcn_pallas.py:96 (dcn_gather)')
 
 TAPS = 9
 BACKWARD_CHUNK = 2048  # queries per step of the backward
@@ -50,20 +59,19 @@ def _corners(sx, sy, h: int, w: int):
     return out, (wx0, wx1, wy0, wy1)
 
 
-def dcn_conv_backward(x, sx, sy, mask, weight, g, chunk=BACKWARD_CHUNK):
-    """Gradients of ``dcn_conv`` against (x, sx, sy, mask, weight), given g
-    [B, Q, CO]: the adjoints of ``_dcn_conv16_vbwd``, query chunk by query
-    chunk. ``d weight`` comes from the taps rounded to x's dtype, as the
-    forward uses them (dcn_pallas.py:806-809); ``d mask`` from the taps
-    before the mask; a corner off the map neither reads nor receives, so
-    ``d sx``/``d sy`` vanish where the sample misses the map
-    (:834-840). Sums in f32; dx and d weight are returned in their
-    inputs' dtypes."""
+def _chunked_backward(x, sx, sy, mask, d_taps, on_taps=None,
+                      chunk=BACKWARD_CHUNK):
+    """The adjoint of the masked bilinear taps, query chunk by query chunk
+    over each image. ``d_taps(i, q0, q1)`` gives the gradient [n, C] f32 of
+    the n = (q1 - q0) * 9 taps of image i, rows (q, tap); ``on_taps(i, q0,
+    q1, taps)``, when given, sees those taps [n, C] f32 as the forward made
+    them. ``d mask`` comes from the taps before the mask; a corner off the
+    map neither reads nor receives, so ``d sx``/``d sy`` vanish where the
+    sample misses the map (dcn_pallas.py:834-840). Sums in f32; returns (dx
+    in x's dtype, dsx, dsy, dmask)."""
     b, h, w, c = x.shape
     _, q, s = sx.shape
-    wf = weight.float()
     dx = torch.zeros(b, h * w, c, dtype=torch.float32, device=x.device)
-    dw = torch.zeros(wf.shape, dtype=torch.float32, device=x.device)
     dsx = torch.empty(b, q, s, dtype=torch.float32, device=x.device)
     dsy = torch.empty_like(dsx)
     dmask = torch.empty_like(dsx)
@@ -72,8 +80,7 @@ def dcn_conv_backward(x, sx, sy, mask, weight, g, chunk=BACKWARD_CHUNK):
         for q0 in range(0, q, chunk):
             q1 = min(q, q0 + chunk)
             n = (q1 - q0) * s
-            gc = g[i, q0:q1].float()                            # [qc, CO]
-            dt = (gc @ wf.t()).reshape(n, c)        # d taps, (q, tap) rows
+            dt = d_taps(i, q0, q1)
             m = mask[i, q0:q1].reshape(n).float()
             corners, (wx0, wx1, wy0, wy1) = _corners(
                 sx[i, q0:q1].reshape(n).float(),
@@ -90,10 +97,40 @@ def dcn_conv_backward(x, sx, sy, mask, weight, g, chunk=BACKWARD_CHUNK):
                              wy1 * (dcw[3] - dcw[2])).reshape(q1 - q0, s)
             dsy[i, q0:q1] = (wx0 * (dcw[2] - dcw[0]) +
                              wx1 * (dcw[3] - dcw[1])).reshape(q1 - q0, s)
-            taps = (samp * m[:, None]).to(x.dtype).float()
-            dw += taps.reshape(q1 - q0, s * c).t() @ gc
-    return (dx.reshape(b, h, w, c).to(x.dtype), dsx, dsy, dmask,
-            dw.to(weight.dtype))
+            if on_taps is not None:
+                on_taps(i, q0, q1, samp * m[:, None])
+    return dx.reshape(b, h, w, c).to(x.dtype), dsx, dsy, dmask
+
+
+def dcn_conv_backward(x, sx, sy, mask, weight, g, chunk=BACKWARD_CHUNK):
+    """Gradients of ``dcn_conv`` against (x, sx, sy, mask, weight), given g
+    [B, Q, CO]: the adjoints of ``_dcn_conv16_vbwd``. ``d weight`` comes
+    from the taps rounded to x's dtype, as the forward uses them
+    (dcn_pallas.py:806-809), and is returned in the weight's dtype."""
+    c = x.shape[-1]
+    wf = weight.float()
+    dw = torch.zeros(wf.shape, dtype=torch.float32, device=x.device)
+
+    def weight_grad(i, q0, q1, taps):
+        taps = taps.to(x.dtype).float().reshape(q1 - q0, TAPS * c)
+        dw.add_(taps.t() @ g[i, q0:q1].float())
+
+    grads = _chunked_backward(
+        x, sx, sy, mask,
+        lambda i, q0, q1: (g[i, q0:q1].float() @ wf.t()).reshape(-1, c),
+        weight_grad, chunk)
+    return grads + (dw.to(weight.dtype),)
+
+
+def dcn_sample_backward(x, sx, sy, mask, g, chunk=BACKWARD_CHUNK):
+    """Gradients of ``dcn_sample`` against (x, sx, sy, mask), given g
+    [B, Q, 9, C]: the adjoint of ``_dcn_sample_ref``, which is what
+    ``jax.vjp`` takes for ``dcn_sample``'s backward (dcn_pallas.py:
+    232-235)."""
+    c = x.shape[-1]
+    return _chunked_backward(
+        x, sx, sy, mask, lambda i, q0, q1: g[i, q0:q1].reshape(-1, c).float(),
+        chunk=chunk)
 
 
 def dcn_conv_plain(x: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
@@ -128,7 +165,11 @@ def dcn_conv_cuda(x: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
         raise ValueError('dcn_conv_forward: all inputs must be on one CUDA '
                          'device')
     if x.dtype != torch.bfloat16 or weight.dtype != torch.bfloat16:
-        raise TypeError('dcn_conv_forward: x and weight must be bfloat16')
+        raise TypeError(
+            f'dcn_conv_forward: x and weight must be bfloat16, not '
+            f'{x.dtype} and {weight.dtype}; an f32 deformable conv samples '
+            f'its taps with dcn_sample (K9) and multiplies them by the '
+            f'weight outside (models.resnet.DeformConv2d)')
     if not all(t.dtype == torch.float32 for t in (sx, sy, mask)):
         raise TypeError('dcn_conv_forward: sx, sy, mask must be float32')
     if x.dim() != 4 or sx.dim() != 3:
@@ -180,3 +221,86 @@ def dcn_conv(x: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
     return _DCNConv.apply(x.contiguous(), sx.float().contiguous(),
                           sy.float().contiguous(), mask.float().contiguous(),
                           weight.contiguous())
+
+
+def dcn_sample_plain(x: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
+                     mask: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K9, one image at a time: the taps [B, Q, 9,
+    C] f32, each the bilinear sample of x in f32 (corners summed in the
+    order (y0 x0, y0 x1, y1 x0, y1 x1)) times the mask, as
+    ``_dcn_sample_ref`` (dcn_pallas.py:155-168)."""
+    b, h, w, c = x.shape
+    _, q, s = sx.shape
+    out = torch.empty(b, q, s, c, dtype=torch.float32, device=x.device)
+    for i in range(b):
+        flat = x[i].reshape(h * w, c)
+        taps = None
+        for idx, wgt in bilinear_corners(sx[i].reshape(-1).float(),
+                                         sy[i].reshape(-1).float(), h, w):
+            term = flat[idx].float() * wgt[:, None]
+            taps = term if taps is None else taps + term
+        out[i] = (taps * mask[i].reshape(-1, 1).float()).reshape(q, s, c)
+    return out
+
+
+def dcn_sample_cuda(x: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
+                    mask: torch.Tensor) -> torch.Tensor:
+    """Launch K9. x [B, H, W, C] f32 (C % 4 == 0, 16-byte aligned: the
+    kernel reads it as float4), sx/sy/mask [B, Q, 9] f32, all contiguous on
+    one CUDA device -> [B, Q, 9, C] f32."""
+    dev = x.device
+    if not (x.is_cuda and sx.device == sy.device == mask.device == dev):
+        raise ValueError('dcn_sample_forward: all inputs must be on one CUDA '
+                         'device')
+    if not all(t.dtype == torch.float32 for t in (x, sx, sy, mask)):
+        raise TypeError('dcn_sample_forward: x, sx, sy, mask must be float32 '
+                        '(a bf16 deformable conv runs dcn_conv, K2)')
+    if x.dim() != 4 or sx.dim() != 3:
+        raise ValueError('dcn_sample_forward: bad ranks')
+    b, h, w, c = x.shape
+    _, q, s = sx.shape
+    if (s != TAPS or sx.shape[0] != b or sy.shape != sx.shape or
+            mask.shape != sx.shape or c % 4):
+        raise ValueError(f'dcn_sample_forward: shapes x {tuple(x.shape)}, '
+                         f'taps {tuple(sx.shape)}')
+    if not all(t.is_contiguous() for t in (x, sx, sy, mask)):
+        raise ValueError('dcn_sample_forward: inputs must be contiguous')
+    if x.data_ptr() % 16:
+        raise ValueError('dcn_sample_forward: x must start on a 16-byte '
+                         'boundary (its storage offset a multiple of 4 '
+                         'floats)')
+    out = torch.empty(b, q, s, c, dtype=torch.float32, device=dev)
+    lib = load_library()
+    with torch.cuda.device(dev):
+        rc = lib.dcn_sample_forward(
+            x.data_ptr(), sx.data_ptr(), sy.data_ptr(), mask.data_ptr(),
+            out.data_ptr(), b, h, w, c, q, stream_of(x))
+    check(rc, 'dcn_sample_forward')
+    SAMPLE.launched(x=x, sx=sx, sy=sy, mask=mask)
+    return out
+
+
+class _DCNSample(torch.autograd.Function):
+    """K9 (CUDA) or the plain version (CPU) forward; the chunked PyTorch
+    backward on both."""
+
+    @staticmethod
+    def forward(ctx, x, sx, sy, mask):
+        ctx.save_for_backward(x, sx, sy, mask)
+        if x.device.type == 'cpu':
+            return dcn_sample_plain(x, sx, sy, mask)
+        return dcn_sample_cuda(x, sx, sy, mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        return dcn_sample_backward(*ctx.saved_tensors, g)
+
+
+def dcn_sample(x: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
+               mask: torch.Tensor) -> torch.Tensor:
+    """Modulated deformable-conv taps -> [B, Q, 9, C] f32: K9 for CUDA
+    tensors, the plain version for CPU tensors; ``dcn_sample_backward`` for
+    the gradient on both."""
+    return _DCNSample.apply(x.contiguous(), sx.float().contiguous(),
+                            sy.float().contiguous(),
+                            mask.float().contiguous())

@@ -1,8 +1,10 @@
 """Training of the port: the optimizer of the reference recipe
-(``make_optimizer``) and the pre-training step (``TrainStep``)."""
+(``make_optimizer``, whose defaults are also the fine-tune's: lr 2e-4,
+weight decay 0.01, backbone lr x 0.1, clip 35), the pre-training step
+(``TrainStep``) and the detection fine-tune step (``DetTrainStep``)."""
 
 from .optim import AdamW, cosine_annealing_schedule, make_optimizer
-from .step import TrainStep
+from .step import DetTrainStep, TrainStep
 
-__all__ = ['AdamW', 'TrainStep', 'cosine_annealing_schedule',
+__all__ = ['AdamW', 'DetTrainStep', 'TrainStep', 'cosine_annealing_schedule',
            'make_optimizer']
