@@ -14,7 +14,7 @@ it drives; a kernel of the path that never launched fails the run:
 0. the card (``nvidia-smi`` name and power limit), torch and CUDA versions,
    and the TF32 switches, set explicitly (off);
 1. the build of the CUDA kernels from ``vidar_tpu_torch/csrc`` (K1-K4, the
-   backwards K5, K6/K7, K8, and K9);
+   backwards K5, K6/K7, K8, K9 and K10);
 2. one full forecast of ``vidar_base`` in bf16 at the nuScenes shapes of
    bench.py (bs 1, 4+1 frames, 6 cameras, 928x1600, 6 futures, 32768 rays),
    random weights (N(0, 1) x 0.02 from a seeded generator), through
@@ -59,7 +59,18 @@ it drives; a kernel of the path that never launched fails the run:
    gradient cosine, card vs CPU), K5 at the TSA, SCA and decoder inputs and
    K6/K7 and K8 against autograd of their plain forwards, as in phase 5,
    two timed steps with peak device memory, and one step with the host's
-   Hungarian calls timed.
+   Hungarian calls timed;
+8. the bf16 forecast of ``vidar_base`` with a deformable conv in every
+   ResNet stage (``backbone_dcn=(True,) * 4``) at phase 2's shapes and
+   weight scheme: stage 1 (C = CO = 64, which K2 does not take) runs K10
+   and a bf16 product, stages 2-4 run K2. One counted warm-up sample (K10 3
+   and K2 30 launches; no K9, no backward kernel), K10 against its plain
+   version on the kept stage-1 input (bit for bit) with ``F.grid_sample`` as
+   the library yardstick and K2 on the kept stage-2 input, as in phase 3;
+   two timed samples with peak device memory beside phase 4's; the
+   small-input forecast and train checks of phases 2 and 5 at
+   ``vidar_tiny(backbone_dcn=(True,) * 4, frozen_stages=0)``, so K10's
+   route and its backward run through autograd on the card.
 
 The line before the last is a JSON object of per-kernel results; the last
 is ``{"ok": true, "device": {...}}``.
@@ -94,6 +105,9 @@ TOLERANCES = {
     # without fused multiply-adds: equal but for a sign of zero; 1e-5 of the
     # largest tap
     'dcn_sample_forward': (0.0, 1e-5),
+    # K2's taps, rounded to bf16 once: equal but for a sign of zero; held
+    # to K9's tolerance
+    'dcn_sample16_forward': (0.0, 1e-5),
 }
 # Backward kernels against autograd of the plain version in f32: f32 atomic
 # sums in an order that changes from run to run (1e-4 of the largest
@@ -149,14 +163,17 @@ def _unit_scale_(model, generator):
 
 
 class _Keeper:
-    """Keeps (cloned) the first input a kernel gets for each case."""
+    """Keeps (cloned) the first input a kernel gets for each case, and
+    counts the launches of each case."""
 
     def __init__(self, case_of):
         self.case_of = case_of
         self.inputs = {}
+        self.counts = {}
 
     def __call__(self, args):
         case = self.case_of(args)
+        self.counts[case] = self.counts.get(case, 0) + 1
         if case is not None and case not in self.inputs:
             self.inputs[case] = {k: v.clone() if torch.is_tensor(v) else v
                                  for k, v in args.items()}
@@ -175,7 +192,8 @@ def _det_msda_case(args):
 
 
 def _dcn_case(args):
-    return {256: 'stage3', 512: 'stage4'}.get(args['x'].shape[-1])
+    return {64: 'stage1', 128: 'stage2', 256: 'stage3',
+            512: 'stage4'}.get(args['x'].shape[-1])
 
 
 def _run_counted(kernels, keepers, fn):
@@ -189,6 +207,8 @@ def _run_counted(kernels, keepers, fn):
     launches = {k.name: k.launches for k in kernels}
     for k in kernels:
         k.on_launch = None
+    by_case = {n: kp.counts for n, kp in keepers.items()}
+    print(f'  launches by case: {json.dumps(by_case)}', flush=True)
     return out, launches
 
 
@@ -281,6 +301,14 @@ def _cost(name, a, out_bytes):
         taps = _dcn_valid_taps(a['sx'], a['sy'], *x.shape[1:3])
         return (_nbytes(x, a['sx'], a['sy'], a['mask']) + out_bytes,
                 {'f32': taps * (F['corners'] + x.shape[-1] * (F['lerp'] + 1))})
+    if name == 'dcn_sample16_forward':
+        # per tap that touches the map: its corners and the mask folded into
+        # the 4 corner weights; per such tap and channel: 4 FMAs. Every tap
+        # is written, in bf16.
+        x = a['x']
+        taps = _dcn_valid_taps(a['sx'], a['sy'], *x.shape[1:3])
+        return (_nbytes(x, a['sx'], a['sy'], a['mask']) + out_bytes,
+                {'f32': taps * (F['corners'] + 4 + x.shape[-1] * F['lerp'])})
     if name == 'dcn_conv_forward':
         x, w = a['x'], a['weight']
         b, q = a['sx'].shape[:2]
@@ -350,12 +378,141 @@ def _stream_meta(k):
 
 
 def _grid_sample_taps(x_nchw, grid, mask):
-    """K9's function as one PyTorch call in its own layout (the library
-    yardstick): x [B, C, H, W], grid [B, Q*9, 1, 2] in [-1, 1] with
-    align_corners, mask [B, 1, Q*9, 1] -> [B, C, Q*9, 1]."""
+    """K9's and K10's function as one PyTorch call in its own layout (the
+    library yardstick): x [B, C, H, W] f32, grid [B, Q*9, 1, 2] in [-1, 1]
+    with align_corners, mask [B, 1, Q*9, 1] -> [B, C, Q*9, 1] f32."""
     return torch.nn.functional.grid_sample(
         x_nchw, grid, mode='bilinear', padding_mode='zeros',
         align_corners=True) * mask
+
+
+def _grid_sample_args(a):
+    """The kept DCN inputs in ``_grid_sample_taps``'s layout, x in f32."""
+    x, sx, sy, mask = a['x'], a['sx'], a['sy'], a['mask']
+    b, h, w, _ = x.shape
+    grid = torch.stack([2 * sx / (w - 1) - 1, 2 * sy / (h - 1) - 1],
+                       -1).reshape(b, -1, 1, 2)
+    return (x.permute(0, 3, 1, 2).float().contiguous(), grid,
+            mask.reshape(b, 1, -1, 1))
+
+
+SMALL = dict(bs=1, queue_length=2, future_length=2, num_cams=3, img_h=64,
+             img_w=64, max_points=128)
+
+
+def _tiny_pair(cfg, dev, seed):
+    """A small bf16 ``ViDAR`` on the card with unit-scale random weights,
+    and the same model on the CPU."""
+    from vidar_tpu_torch.models import ViDAR
+    tiny = ViDAR(**cfg, dtype=torch.bfloat16, device=dev).eval()
+    _unit_scale_(tiny, torch.Generator(device=dev).manual_seed(seed))
+    tiny_cpu = ViDAR(**cfg, dtype=torch.bfloat16, device='cpu').eval()
+    tiny_cpu.load_state_dict({k: v.cpu() for k, v in
+                              tiny.state_dict().items()})
+    return tiny, tiny_cpu
+
+
+def _small_forecast_check(tiny, tiny_cpu, dev, label):
+    """The same small forecast through the kernels (card) and the plain
+    versions (CPU): the decode's GT geometry must agree and the predictions
+    must land on the same waypoints on nearly every ray."""
+    from vidar_tpu_torch.data import make_synthetic_batch
+    from vidar_tpu_torch.evals.forecast_runner import ForecastRunner
+    sb = make_synthetic_batch(np.random.default_rng(0), **SMALL,
+                              device='cpu')
+    nf = tiny.test_future_frame_num
+    hw = (SMALL['img_h'], SMALL['img_w'])
+    got = ForecastRunner(tiny, hw, num_future=nf, device=dev)(sb)
+    ref = ForecastRunner(tiny_cpu, hw, num_future=nf, device='cpu')(sb)
+    v = ref['frame_idx'] >= 0
+    gt_err = (got['gt_dist'].cpu()[v] - ref['gt_dist'][v]).abs().max().item()
+    same = ((got['pred_dist'].cpu()[v] - ref['pred_dist'][v]).abs() <=
+            1e-3).float().mean().item()
+    print(f'small input ({label}, 64x64), card vs CPU plain: gt_dist max '
+          f'err {gt_err:.3g} m, pred_dist on the same waypoint for '
+          f'{same:.4f} of {int(v.sum())} rays', flush=True)
+    # gt_dist is f32 geometry and must agree. The two devices round the
+    # bf16 model differently (convolution algorithms, sum orders), so an
+    # argmax over 16 waypoints may flip on near ties; a broken path lands
+    # on the same waypoint for about 1 ray in 16
+    if gt_err > 1e-4 or same < 0.5:
+        raise RuntimeError(f'small-input forecast ({label}) disagrees with '
+                           f'the CPU')
+
+
+def _grad_agreement(sides):
+    """(loss max rel diff, flattened gradient cosine, {tensor: cosine}) of
+    [(losses, grads) on the card, (losses, grads) on the CPU]; tensors
+    whose CPU gradient is under 1e-3 of the largest are left out."""
+    (lg, gg), (lc, gc) = sides
+    loss_err = max(abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-6) for k in lc)
+    flat_g = torch.cat([g.reshape(-1) for g in gg.values()])
+    flat_c = torch.cat([g.reshape(-1) for g in gc.values()])
+    cos = torch.nn.functional.cosine_similarity(flat_g, flat_c, 0).item()
+    biggest = max(float(g.norm()) for g in gc.values())
+    per_tensor = {n: torch.nn.functional.cosine_similarity(
+        gg[n].reshape(-1), gc[n].reshape(-1), 0).item()
+        for n in gc if float(gc[n].norm()) > 1e-3 * biggest}
+    return loss_err, cos, per_tensor
+
+
+def _small_train_check(tiny, tiny_cpu, dev, label, each_loss=True):
+    """One forward and backward of the small model, dropout and noise off,
+    through the kernels (card) and the plain versions (CPU): the losses
+    (each relative to itself, or with ``each_loss=False`` to the largest)
+    and the cosine similarity of the parameter gradients."""
+    from vidar_tpu_torch.data import make_synthetic_batch
+    tb = make_synthetic_batch(np.random.default_rng(0), **SMALL,
+                              device='cpu')
+    sides = []
+    for m, d in ((tiny, dev), (tiny_cpu, 'cpu')):
+        m.zero_grad(set_to_none=True)
+        losses = m(tb.to(d))
+        sum(losses.values()).backward()
+        grads = {n: (p.grad if p.grad is not None else
+                     torch.zeros_like(p)).float().cpu()
+                 for n, p in m.named_parameters()}
+        sides.append(({k: float(x.detach()) for k, x in losses.items()},
+                      grads))
+    loss_err, cos, per_tensor = _grad_agreement(sides)
+    (lg, _), (lc, _) = sides
+    if not each_loss:
+        loss_err = max(abs(lg[k] - lc[k]) for k in lc) / max(
+            abs(v) for v in lc.values())
+    worst = min(per_tensor, key=per_tensor.get)
+    print(f'small input train ({label}, 64x64, bf16), card vs CPU plain: '
+          f'losses {json.dumps({k: [lg[k], lc[k]] for k in lc})}, max diff '
+          f'{loss_err:.3g} of {"each" if each_loss else "the largest"}; '
+          f'gradient cosine {cos:.5f} (flattened), min per tensor '
+          f'{per_tensor[worst]:.4f} ({worst}, {len(per_tensor)} tensors)',
+          flush=True)
+    # the bf16 model rounds differently on the two devices; a backward
+    # kernel that returns zeros leaves the tensors it feeds at cosine 0
+    if loss_err > 2e-2 or cos < 0.99 or per_tensor[worst] < 0.9:
+        raise RuntimeError(f'small-input train step ({label}) disagrees '
+                           f'with the CPU')
+
+
+def _check_forecast(out, cfg, bs, pts):
+    """A full forecast's decode: [bs, pts] outputs, some valid rays, finite
+    distances, predictions on the ray -> the predicted distances."""
+    for key in ('pred_dist', 'gt_dist', 'frame_idx'):
+        if tuple(out[key].shape) != (bs, pts):
+            raise RuntimeError(f'{key} shape {tuple(out[key].shape)}')
+    valid = out['frame_idx'] >= 0
+    if not bool(valid.any()):
+        raise RuntimeError('no valid ray in the decode')
+    for key in ('pred_dist', 'gt_dist'):
+        if not bool(torch.isfinite(out[key]).all()):
+            raise RuntimeError(f'{key} has non-finite values')
+    max_len = cfg['ray_grid_num'] * cfg['ray_grid_step'] * (
+        (cfg['pc_range'][3] - cfg['pc_range'][0]) / cfg['bev_w'])
+    pd = out['pred_dist'][valid]
+    if not bool(((pd >= 0) & (pd <= max_len)).all()):
+        raise RuntimeError('predicted distances outside the ray')
+    print(f'decode: {int(valid.sum())} valid rays, pred_dist mean '
+          f'{pd.mean().item():.4f} m, gt_dist mean '
+          f'{out["gt_dist"][valid].mean().item():.4f} m', flush=True)
 
 
 def _check_detections(name, pred, gt, num_classes):
@@ -419,8 +576,9 @@ def main() -> int:
     backward_kernels = [msda.BACKWARD, latent_render.FIRST_HIT_BACKWARD,
                         latent_render.AGGREGATE_BACKWARD]
     kernels = forward_kernels + backward_kernels
-    # K9 runs on the f32 fine-tune's path only; every path counts it
-    counted = kernels + [dcn.SAMPLE]
+    # K9 runs on the f32 fine-tune's path only, K10 on phase 8's; every path
+    # counts both
+    counted = kernels + [dcn.SAMPLE, dcn.SAMPLE16]
     keepers = {msda.KERNEL.name: _Keeper(_msda_case),
                dcn.KERNEL.name: _Keeper(_dcn_case),
                latent_render.FIRST_HIT.name: _Keeper(lambda a: 'encoder'),
@@ -445,57 +603,14 @@ def main() -> int:
     for k in forward_kernels:
         if launches[k.name] <= 0:
             raise RuntimeError(f'kernel {k.name} never launched on the path')
-    if launches[dcn.SAMPLE.name] or any(launches[k.name]
-                                        for k in backward_kernels):
-        raise RuntimeError('the bf16 forecast ran K9 or a backward kernel')
-    for key in ('pred_dist', 'gt_dist', 'frame_idx'):
-        if tuple(out[key].shape) != (bs, pts):
-            raise RuntimeError(f'{key} shape {tuple(out[key].shape)}')
-    valid = out['frame_idx'] >= 0
-    if not bool(valid.any()):
-        raise RuntimeError('no valid ray in the decode')
-    for key in ('pred_dist', 'gt_dist'):
-        if not bool(torch.isfinite(out[key]).all()):
-            raise RuntimeError(f'{key} has non-finite values')
-    max_len = cfg['ray_grid_num'] * cfg['ray_grid_step'] * (
-        (cfg['pc_range'][3] - cfg['pc_range'][0]) / cfg['bev_w'])
-    pd = out['pred_dist'][valid]
-    if not bool(((pd >= 0) & (pd <= max_len)).all()):
-        raise RuntimeError('predicted distances outside the ray')
-    print(f'decode: {int(valid.sum())} valid rays, pred_dist mean '
-          f'{pd.mean().item():.4f} m, gt_dist mean '
-          f'{out["gt_dist"][valid].mean().item():.4f} m', flush=True)
+    if launches[dcn.SAMPLE.name] or launches[dcn.SAMPLE16.name] or any(
+            launches[k.name] for k in backward_kernels):
+        raise RuntimeError('the bf16 forecast ran K9, K10 or a backward '
+                           'kernel')
+    _check_forecast(out, cfg, bs, pts)
 
-    # small input: the same forecast through the kernels (card) and the
-    # plain versions (CPU); the decode's GT geometry must agree and the
-    # predictions must land on the same waypoints on nearly every ray
-    tcfg = vidar_tiny(use_grid_mask=False)
-    tiny = ViDAR(**tcfg, dtype=torch.bfloat16, device=dev).eval()
-    _unit_scale_(tiny, torch.Generator(device=dev).manual_seed(1))
-    tiny_cpu = ViDAR(**tcfg, dtype=torch.bfloat16, device='cpu').eval()
-    tiny_cpu.load_state_dict({k: v.cpu() for k, v in
-                              tiny.state_dict().items()})
-    small = dict(bs=1, queue_length=2, future_length=2, num_cams=3,
-                 img_h=64, img_w=64, max_points=128)
-    sb = make_synthetic_batch(np.random.default_rng(0), **small,
-                              device='cpu')
-    nf = tcfg['test_future_frame_num']
-    got = ForecastRunner(tiny, (64, 64), num_future=nf, device=dev)(sb)
-    ref = ForecastRunner(tiny_cpu, (64, 64), num_future=nf,
-                         device='cpu')(sb)
-    v = ref['frame_idx'] >= 0
-    gt_err = (got['gt_dist'].cpu()[v] - ref['gt_dist'][v]).abs().max().item()
-    same = ((got['pred_dist'].cpu()[v] - ref['pred_dist'][v]).abs() <=
-            1e-3).float().mean().item()
-    print(f'small input (vidar_tiny, 64x64), card vs CPU plain: gt_dist max '
-          f'err {gt_err:.3g} m, pred_dist on the same waypoint for '
-          f'{same:.4f} of {int(v.sum())} rays', flush=True)
-    # gt_dist is f32 geometry and must agree. The two devices round the
-    # bf16 model differently (convolution algorithms, sum orders), so an
-    # argmax over 16 waypoints may flip on near ties; a broken path lands
-    # on the same waypoint for about 1 ray in 16
-    if gt_err > 1e-4 or same < 0.5:
-        raise RuntimeError('small-input forecast disagrees with the CPU')
+    tiny, tiny_cpu = _tiny_pair(vidar_tiny(use_grid_mask=False), dev, 1)
+    _small_forecast_check(tiny, tiny_cpu, dev, 'vidar_tiny')
 
     # -- phase 3: every forward kernel against its plain version
     results = []
@@ -532,6 +647,20 @@ def main() -> int:
         library_ms = None if library is None else _time_ms(library)
         record(counter, case, err, scale, ok, ms, plain_ms,
                _cost(counter.name, args, out_bytes), n, library_ms)
+        return ok
+
+    def compare_dcn_taps(counter, case, a, run_kernel, run_plain, n):
+        """K9 or K10 on the kept input ``a``, with ``F.grid_sample`` x mask
+        on the same input as the library yardstick."""
+        gs = _grid_sample_args(a)
+        ok = compare(counter, case, a, run_kernel, run_plain, n=n,
+                     library=lambda: _grid_sample_taps(*gs))
+        b_, c_ = a['x'].shape[0], a['x'].shape[-1]
+        lib = _grid_sample_taps(*gs).reshape(b_, c_, -1, 9).permute(0, 2, 3,
+                                                                     1)
+        plain = run_plain().float().reshape(lib.shape)
+        print(f'  grid_sample yardstick[{case}]: max abs diff from the plain '
+              f'version {(lib - plain).abs().max().item():.3g}', flush=True)
         return ok
 
     oks = []
@@ -595,6 +724,7 @@ def main() -> int:
         raise RuntimeError('timed forecast gave non-finite distances')
     dt = sum(times) / len(times)
     peak = torch.cuda.max_memory_allocated()
+    forecast_s, forecast_peak = dt, peak
     print(f'forecast (vidar_base bf16, bs {bs}, {q}+1 frames x {cams} cams '
           f'{ih}x{iw}, {f} futures, {pts} rays): '
           f'{" ".join(f"{t:.4f}" for t in times)} s -> {dt:.4f} s/sample, '
@@ -618,6 +748,9 @@ def main() -> int:
     keepers = {k.name: _Keeper(_msda_case if k is msda.BACKWARD
                                else lambda a: 'encoder')
                for k in backward_kernels}
+    # the forward kernels' launches by case, as in phase 2
+    keepers.update({msda.KERNEL.name: _Keeper(_msda_case),
+                    dcn.KERNEL.name: _Keeper(_dcn_case)})
     t0 = time.perf_counter()
     metrics, train_launches = _run_counted(counted, keepers,
                                            lambda: step(tr_batch))
@@ -629,8 +762,8 @@ def main() -> int:
         if train_launches[k.name] <= 0:
             raise RuntimeError(f'kernel {k.name} never launched in the train '
                                f'step')
-    if train_launches[dcn.SAMPLE.name]:
-        raise RuntimeError('the bf16 train step ran K9')
+    if train_launches[dcn.SAMPLE.name] or train_launches[dcn.SAMPLE16.name]:
+        raise RuntimeError('the bf16 train step ran K9 or K10')
     for r in results:
         r['train_launches'] = train_launches[r['name'].split('[')[0]]
     if not all(np.isfinite(v) for v in metrics.values()):
@@ -645,39 +778,8 @@ def main() -> int:
     if moved == 0:
         raise RuntimeError('the train step moved no parameter')
 
-    # small-input train check: one forward and backward, dropout and noise
-    # off, through the kernels (card) and the plain versions (CPU)
-    tb = make_synthetic_batch(np.random.default_rng(0), **small,
-                              device='cpu')
-    sides = []
-    for m, d in ((tiny, dev), (tiny_cpu, 'cpu')):
-        m.zero_grad(set_to_none=True)
-        losses = m(tb.to(d))
-        sum(losses.values()).backward()
-        grads = {n: (p.grad if p.grad is not None else
-                     torch.zeros_like(p)).float().cpu()
-                 for n, p in m.named_parameters()}
-        sides.append(({k: float(x.detach()) for k, x in losses.items()},
-                      grads))
-    (lg, gg), (lc, gc) = sides
-    loss_err = max(abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-6) for k in lc)
-    flat_g = torch.cat([g.reshape(-1) for g in gg.values()])
-    flat_c = torch.cat([g.reshape(-1) for g in gc.values()])
-    cos = torch.nn.functional.cosine_similarity(flat_g, flat_c, 0).item()
-    biggest = max(float(g.norm()) for g in gc.values())
-    per_tensor = {n: torch.nn.functional.cosine_similarity(
-        gg[n].reshape(-1), gc[n].reshape(-1), 0).item()
-        for n in gc if float(gc[n].norm()) > 1e-3 * biggest}
-    worst = min(per_tensor, key=per_tensor.get)
-    print(f'small input train (vidar_tiny, 64x64, bf16), card vs CPU plain: '
-          f'losses max rel diff {loss_err:.3g}; gradient cosine {cos:.5f} '
-          f'(flattened), min per tensor {per_tensor[worst]:.4f} ({worst}, '
-          f'{len(per_tensor)} tensors)', flush=True)
-    # the bf16 model rounds differently on the two devices; a backward
-    # kernel that returns zeros leaves the tensors it feeds at cosine 0
-    if loss_err > 2e-2 or cos < 0.99 or per_tensor[worst] < 0.9:
-        raise RuntimeError('small-input train step disagrees with the CPU')
-    del tiny, tiny_cpu, sides, gg, gc
+    _small_train_check(tiny, tiny_cpu, dev, 'vidar_tiny')
+    del tiny, tiny_cpu
 
     # the backward kernels on the train step's inputs, against autograd of
     # the plain forward
@@ -817,8 +919,8 @@ def main() -> int:
         if det_launches[k.name] <= 0:
             raise RuntimeError(f'kernel {k.name} never launched in the '
                                f'fine-tune eval')
-    if det_launches[dcn.KERNEL.name]:
-        raise RuntimeError('the f32 fine-tune ran K2, the bf16 DCN')
+    if det_launches[dcn.KERNEL.name] or det_launches[dcn.SAMPLE16.name]:
+        raise RuntimeError('the f32 fine-tune ran K2 or K10, the bf16 DCN')
     for name, (pred, gt) in samples.items():
         _check_detections(name, pred, gt, dcfg['num_classes'])
     if len(samples['full'][1]['boxes']) != n_gt:
@@ -846,8 +948,7 @@ def main() -> int:
     sides = []
     for m, d in ((tiny, dev), (tiny_cpu, 'cpu')):
         with torch.inference_mode():
-            f = sdb.frames.to(d)
-            preds = m(f, train=False)
+            preds = m(sdb.frames.to(d), train=False)
             st = m.init_stream(1, d)
             for b_k in (_window(sdb, 2), sdb):
                 sp, st = m.streaming_test(b_k.frames.to(d), st)
@@ -869,27 +970,10 @@ def main() -> int:
     # K9 and the fine-tune's K1 calls against their plain versions
     oks = []
     for case, a in sorted(keepers[dcn.SAMPLE.name].inputs.items()):
-        x, sx, sy, mask = a['x'], a['sx'], a['sy'], a['mask']
-        b_, h_, w_, _ = x.shape
-        x_nchw = x.permute(0, 3, 1, 2).contiguous()
-        grid = torch.stack([2 * sx / (w_ - 1) - 1, 2 * sy / (h_ - 1) - 1],
-                           -1).reshape(b_, -1, 1, 2)
-        m_l = mask.reshape(b_, 1, -1, 1)
-        oks.append(compare(
-            dcn.SAMPLE, case, a,
-            lambda a=a: dcn.dcn_sample_cuda(a['x'], a['sx'], a['sy'],
-                                            a['mask']),
-            lambda a=a: dcn.dcn_sample_plain(a['x'], a['sx'], a['sy'],
-                                             a['mask']),
-            n=det_launches,
-            library=lambda x_nchw=x_nchw, grid=grid, m_l=m_l:
-                _grid_sample_taps(x_nchw, grid, m_l)))
-        lib = _grid_sample_taps(x_nchw, grid, m_l).reshape(
-            b_, x.shape[-1], -1, 9).permute(0, 2, 3, 1)
-        plain = dcn.dcn_sample_plain(x, sx, sy, mask)
-        print(f'  grid_sample yardstick[{case}]: max abs diff from the plain '
-              f'version {(lib - plain).abs().max().item():.3g}', flush=True)
-        del x_nchw, grid, m_l, lib, plain
+        args = (a['x'], a['sx'], a['sy'], a['mask'])
+        oks.append(compare_dcn_taps(
+            dcn.SAMPLE, case, a, lambda args=args: dcn.dcn_sample_cuda(*args),
+            lambda args=args: dcn.dcn_sample_plain(*args), det_launches))
     kept = keepers[msda.KERNEL.name].inputs
     for case in ('det_tsa', 'det_sca', 'det_decoder'):
         a = kept[case]
@@ -945,6 +1029,8 @@ def main() -> int:
     keepers = {k.name: _Keeper(_det_msda_case if k is msda.BACKWARD
                                else lambda a: 'det_encoder')
                for k in backward_kernels}
+    keepers.update({msda.KERNEL.name: _Keeper(_det_msda_case),
+                    dcn.SAMPLE.name: _Keeper(_dcn_case)})
     t0 = time.perf_counter()
     metrics, det_train_launches = _run_counted(
         counted, keepers, lambda: det_step(det_batch))
@@ -956,8 +1042,9 @@ def main() -> int:
         if det_train_launches[k.name] <= 0:
             raise RuntimeError(f'kernel {k.name} never launched in the '
                                f'fine-tune train step')
-    if det_train_launches[dcn.KERNEL.name]:
-        raise RuntimeError('the f32 fine-tune train step ran K2')
+    if det_train_launches[dcn.KERNEL.name] or det_train_launches[
+            dcn.SAMPLE16.name]:
+        raise RuntimeError('the f32 fine-tune train step ran K2 or K10')
     if not all(np.isfinite(v) for v in metrics.values()):
         raise RuntimeError('non-finite fine-tune train metrics')
     if not metrics['grad_norm'] > 0:
@@ -984,15 +1071,7 @@ def main() -> int:
                  for n, p in m.named_parameters()}
         sides.append(({k: float(x.detach()) for k, x in losses.items()},
                       grads))
-    (lg, gg), (lc, gc) = sides
-    loss_err = max(abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-6) for k in lc)
-    flat_g = torch.cat([g.reshape(-1) for g in gg.values()])
-    flat_c = torch.cat([g.reshape(-1) for g in gc.values()])
-    cos = torch.nn.functional.cosine_similarity(flat_g, flat_c, 0).item()
-    biggest = max(float(g.norm()) for g in gc.values())
-    per_tensor = {n: torch.nn.functional.cosine_similarity(
-        gg[n].reshape(-1), gc[n].reshape(-1), 0).item()
-        for n in gc if float(gc[n].norm()) > 1e-3 * biggest}
+    loss_err, cos, per_tensor = _grad_agreement(sides)
     worst = min(per_tensor, key=per_tensor.get)
     print(f'small input fine-tune train (tiny, 64x64, f32), card vs CPU '
           f'plain: losses max rel diff {loss_err:.3g}; gradient cosine '
@@ -1003,7 +1082,7 @@ def main() -> int:
     if loss_err > 1e-3 or cos < 0.999 or per_tensor[worst] < 0.99:
         raise RuntimeError('small-input fine-tune train step disagrees with '
                            'the CPU')
-    del tiny, tiny_cpu, sides, gg, gc
+    del tiny, tiny_cpu, sides
 
     # the backward kernels on the fine-tune step's f32 inputs (K5 at each
     # of its attentions), against autograd of the plain forward
@@ -1052,12 +1131,100 @@ def main() -> int:
           f'grad_norm {metrics["grad_norm"]:.5g}; Hungarian on the host: '
           f'{len(lap_s)} calls, {1e3 * sum(lap_s):.2f} ms per step (copy + '
           f'scipy, after a synchronisation) on {card}', flush=True)
+    del det_step, det, det_batch
+    torch.cuda.empty_cache()
+
+    # -- phase 8: the bf16 forecast with a deformable conv in every ResNet
+    # stage; stage 1 (C = CO = 64) is a shape K2 does not take
+    dcn_cfg = vidar_base(backbone_dcn=(True, True, True, True))
+    model = ViDAR(**dcn_cfg, dtype=torch.bfloat16, device=dev).eval()
+    model.randomize_(torch.Generator(device=dev).manual_seed(7), 0.02)
+    batch = make_synthetic_batch(np.random.default_rng(0), bs=bs,
+                                 queue_length=q, future_length=f,
+                                 num_cams=cams, img_h=ih, img_w=iw,
+                                 max_points=pts, device=dev)
+    runner = ForecastRunner(model, (ih, iw), num_future=f, device=dev)
+    keepers = {dcn.SAMPLE16.name: _Keeper(_dcn_case),
+               dcn.KERNEL.name: _Keeper(_dcn_case)}
+    t0 = time.perf_counter()
+    out, dcn_launches = _run_counted(counted, keepers, lambda: runner(batch))
+    print(f'all-DCN forecast 1 (incl. warm-up): '
+          f'{time.perf_counter() - t0:.3f} s; launches '
+          f'{json.dumps(dcn_launches)}', flush=True)
+    # one sample: ResNet-101's 3 stage-1 blocks run K10, its 4 + 23 + 3
+    # stage-2 to stage-4 blocks K2, each once over the 30 images
+    if dcn_launches[dcn.SAMPLE16.name] != 3 or dcn_launches[
+            dcn.KERNEL.name] != 30:
+        raise RuntimeError('the all-DCN forecast did not run K10 3 times and '
+                           'K2 30 times')
+    for k in forward_kernels:
+        if dcn_launches[k.name] <= 0:
+            raise RuntimeError(f'kernel {k.name} never launched on the '
+                               f'all-DCN forecast')
+    if dcn_launches[dcn.SAMPLE.name] or any(dcn_launches[k.name]
+                                            for k in backward_kernels):
+        raise RuntimeError('the all-DCN forecast ran K9 or a backward kernel')
+    _check_forecast(out, dcn_cfg, bs, pts)
+    del out
+
+    a = keepers[dcn.SAMPLE16.name].inputs['stage1']
+    args = (a['x'], a['sx'], a['sy'], a['mask'])
+    oks = [compare_dcn_taps(
+        dcn.SAMPLE16, 'stage1', a, lambda: dcn.dcn_sample16_cuda(*args),
+        lambda: dcn.dcn_sample16_plain(*args), dcn_launches)]
+    a = keepers[dcn.KERNEL.name].inputs['stage2']
+    args2 = (a['x'], a['sx'], a['sy'], a['mask'], a['weight'])
+    oks.append(compare(dcn.KERNEL, 'stage2', a,
+                       lambda: dcn.dcn_conv_cuda(*args2),
+                       lambda: dcn.dcn_conv_plain(*args2), n=dcn_launches))
+    keepers.clear()
+    del a, args, args2
+    if not all(oks):
+        raise RuntimeError('a kernel disagrees with its plain version on the '
+                           'all-DCN forecast')
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        out = runner(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    if not bool(torch.isfinite(out['pred_dist']).all()):
+        raise RuntimeError('timed all-DCN forecast gave non-finite distances')
+    dt = sum(times) / len(times)
+    peak = torch.cuda.max_memory_allocated()
+    print(f'all-DCN forecast (vidar_base bf16, backbone_dcn (True,) * 4, '
+          f'bs {bs}, {q}+1 frames x {cams} cams {ih}x{iw}, {f} futures, {pts} '
+          f'rays): {" ".join(f"{t:.4f}" for t in times)} s -> {dt:.4f} '
+          f's/sample, peak memory {peak / 2**30:.2f} GiB; phase 4 (stages 3-4 '
+          f'DCN) {forecast_s:.4f} s/sample, {forecast_peak / 2**30:.2f} GiB '
+          f'on {card}', flush=True)
+    del model, runner, batch, out
+    torch.cuda.empty_cache()
+
+    tiny, tiny_cpu = _tiny_pair(vidar_tiny(use_grid_mask=False,
+                                           backbone_dcn=(True,) * 4,
+                                           frozen_stages=0), dev, 8)
+    for k in counted:
+        k.launches = 0
+    _small_forecast_check(tiny, tiny_cpu, dev, 'vidar_tiny all-DCN')
+    # the losses against the largest: the dense-voxel loss decodes each
+    # voxel's ray at its argmax waypoint, so a near tie that the two
+    # devices' bf16 roundings break apart moves that small loss by a step
+    _small_train_check(tiny, tiny_cpu, dev, 'vidar_tiny all-DCN',
+                       each_loss=False)
+    if not dcn.SAMPLE16.launches:
+        raise RuntimeError('the small all-DCN checks never ran K10')
+    del tiny, tiny_cpu
 
     for r in results:
         base = r['name'].split('[')[0]
         r.setdefault('train_launches', train_launches[base])
         r['det_eval_launches'] = det_launches[base]
         r['det_train_launches'] = det_train_launches[base]
+        r['all_dcn_launches'] = dcn_launches[base]
     print(json.dumps({'kernels': results}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

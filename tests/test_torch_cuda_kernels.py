@@ -159,6 +159,108 @@ def test_f32_deform_conv_launches_dcn_sample(dev):
                                                           counts[1] + 1)
 
 
+def _dcn_taps(rng, b, h, w, dev):
+    """Tap coordinates around each pixel with offsets of ~1.5 px, the zero
+    ring and beyond written into the first pixel's taps, and masks."""
+    q = h * w
+    gy, gx = np.meshgrid(np.arange(h), np.arange(w), indexing='ij')
+    k = np.arange(3) - 1.0
+    ky, kx = np.meshgrid(k, k, indexing='ij')
+    sy = (gy.reshape(1, q, 1) + ky.reshape(1, 1, 9) +
+          rng.normal(0, 1.5, (b, q, 9)))
+    sx = (gx.reshape(1, q, 1) + kx.reshape(1, 1, 9) +
+          rng.normal(0, 1.5, (b, q, 9)))
+    sx[0, 0] = [-1.0, -0.5, -0.25, 0.0, w - 1.0, w - 0.75, w - 0.5, w, -3.0]
+    sy[0, 0] = [0.5, h - 0.5, -0.5, h - 1.0, -1.0, 2.0, h + 0.25, 1.0, -2.0]
+    return (_t(sx, dev), _t(sy, dev),
+            _t(rng.uniform(size=(b, q, 9)), dev))
+
+
+@pytest.mark.parametrize('c', [64, 256, 20])
+def test_dcn_sample16_kernel_matches_plain(dev, c):
+    """K10 against its plain version, bit for bit: C = 64 and 256 take the
+    16-byte path, C = 20 and an x off a 16-byte boundary the scalar one."""
+    rng = np.random.default_rng(9)
+    b, h, w = 2, 13, 21
+    x = _t(rng.standard_normal((b, h, w, c)), dev, torch.bfloat16)
+    sx, sy, mask = _dcn_taps(rng, b, h, w, dev)
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)[1:]
+    shifted = shifted.view(x.shape).copy_(x)
+    assert shifted.data_ptr() % 16
+    before = dcn.SAMPLE16.launches
+    want = dcn.dcn_sample16_plain(x, sx, sy, mask)
+    for xi in (x, shifted):
+        got = dcn.dcn_sample16_cuda(xi, sx, sy, mask)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16 and got.shape == (b, h * w, 9 * c)
+        # K2's tap arithmetic without FMAs and one round to nearest even:
+        # equal (but for a sign of zero)
+        assert torch.equal(got, want)
+        assert not bool(got[0, 0, 8 * c:].any())
+    assert dcn.SAMPLE16.launches == before + 2
+
+
+def test_dcn_sample16_kernel_rejects_bad_input(dev):
+    x = torch.randn(1, 5, 6, 64, device=dev, dtype=torch.bfloat16)
+    sx = torch.rand(1, 30, 9, device=dev) * 5
+    sy, mask = sx.clone(), torch.ones_like(sx)
+    before = dcn.SAMPLE16.launches
+    with pytest.raises(TypeError):
+        dcn.dcn_sample16_cuda(x.float(), sx, sy, mask)
+    with pytest.raises(TypeError):
+        dcn.dcn_sample16_cuda(x, sx.double(), sy, mask)
+    with pytest.raises(ValueError, match='contiguous'):
+        dcn.dcn_sample16_cuda(x.transpose(1, 2), sx[:, :30], sy, mask)
+    sx_t = (torch.rand(1, 9, 30, device=dev) * 5).transpose(1, 2)
+    with pytest.raises(ValueError, match='contiguous'):
+        dcn.dcn_sample16_cuda(x, sx_t, sy, mask)
+    with pytest.raises(ValueError):
+        dcn.dcn_sample16_cuda(x, sx[..., :8], sy, mask)
+    assert dcn.SAMPLE16.launches == before
+
+
+@pytest.mark.parametrize('c,co,route', [(64, 64, 'K10'), (128, 128, 'K2'),
+                                        (256, 64, 'K10')])
+def test_bf16_deform_conv_routes(dev, c, co, route):
+    """A bf16 DeformConv2d runs K2 where it takes the shape (C % 32 == 0 and
+    CO % 128 == 0), else K10 and a bf16 product; its output and its input
+    gradient agree with the same module on the CPU."""
+    from vidar_tpu_torch.models.resnet import DeformConv2d
+    torch.manual_seed(0)
+    mod = DeformConv2d(c, co, dtype=torch.bfloat16, device=dev)
+    # the offsets from the offset conv's bias alone (its kernel zero, as it
+    # is initialised): the same bf16 offsets on both devices, whose bf16
+    # convolutions round differently (tests/test_torch_dcn_sample16.py)
+    torch.nn.init.zeros_(mod.conv_offset.weight)
+    torch.nn.init.normal_(mod.conv_offset.bias, std=1.5)
+    torch.nn.init.normal_(mod.kernel, std=1 / (9 * c) ** 0.5)
+    x = torch.randn(2, c, 9, 11, device=dev, dtype=torch.bfloat16
+                    ).contiguous(memory_format=torch.channels_last)
+    x.requires_grad_()
+    counts = (dcn.SAMPLE16.launches, dcn.KERNEL.launches)
+    out = mod(x)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    want = (counts[0] + 1, counts[1]) if route == 'K10' else (counts[0],
+                                                              counts[1] + 1)
+    assert (dcn.SAMPLE16.launches, dcn.KERNEL.launches) == want
+    assert out.dtype == torch.bfloat16 and out.shape == (2, co, 9, 11)
+    assert bool(torch.isfinite(out).all()) and x.grad is not None
+    cpu = DeformConv2d(c, co, dtype=torch.bfloat16, device='cpu')
+    cpu.load_state_dict({k: v.cpu() for k, v in mod.state_dict().items()})
+    xc = x.detach().cpu().requires_grad_()
+    ref = cpu(xc)
+    ref.float().square().sum().backward()
+    # the same bf16 taps on both devices; the product's f32 sums in another
+    # order (cuBLAS vs the CPU) before the rounding to bf16: within 2e-2, as
+    # the CPU tests hold the port to JAX
+    torch.testing.assert_close(out.detach().cpu().float(), ref.float(),
+                               atol=2e-2, rtol=2e-2)
+    cos = torch.nn.functional.cosine_similarity(
+        x.grad.cpu().float().reshape(-1), xc.grad.float().reshape(-1), 0)
+    assert cos.item() > 0.99, cos.item()
+
+
 def _geometry(h, w, g, dev):
     from vidar_tpu_torch.models.latent_rendering import ray_geometry
     return ray_geometry(h, w, g, 0.5, dev)

@@ -91,12 +91,25 @@ def test_synthetic_batches_identical(models):
 
 
 def test_state_dict_consumes_every_leaf(models):
-    _, _, params, _, torch_model, _ = models
-    sd = state_dict_from_jax(params)
-    assert len(sd) == len(jax.tree_util.tree_leaves(params))
-    assert set(sd) == set(torch_model.state_dict())
-    missing, unexpected = torch_model.load_state_dict(sd, strict=True)
-    assert not missing and not unexpected
+    cfg, _, params, jbatch, torch_model, _ = models
+    # the preset, then a deformable conv in every ResNet stage: the offset
+    # conv and kernel of a stage-1 or stage-2 block are carried too
+    all_dcn = dict(cfg, backbone_dcn=(True, True, True, True))
+    key = jax.random.PRNGKey(0)
+    dcn_params = jax.eval_shape(lambda: JaxViDAR(**all_dcn).init(
+        {'params': key, 'dropout': key}, jbatch, train=False))
+    dcn_params = jax.tree_util.tree_map(
+        lambda s: np.zeros(s.shape, np.float32), dcn_params)
+    for params, torch_model in (
+            (params, torch_model),
+            (dcn_params, ViDAR(**all_dcn, device='cpu'))):
+        sd = state_dict_from_jax(params)
+        assert len(sd) == len(jax.tree_util.tree_leaves(params))
+        assert set(sd) == set(torch_model.state_dict())
+        missing, unexpected = torch_model.load_state_dict(sd, strict=True)
+        assert not missing and not unexpected
+    assert any(k.startswith('img_backbone.layer1_0.conv2.conv_offset.')
+               for k in sd)
 
 
 def test_forecast_phases_match_jax(models):

@@ -15,7 +15,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.dcn import dcn_conv, dcn_sample
+from ..ops.dcn import dcn_conv, dcn_sample, dcn_sample16, fused_dcn_fits
 from .layers import Conv2d
 
 ARCH_SETTINGS = {
@@ -44,9 +44,11 @@ class DeformConv2d(nn.Module):
 
     ``conv_offset`` predicts mmcv's [o1_y, o1_x, ..., o9_y, o9_x, m1..m9]
     channels (sigmoid on the masks); ``kernel`` is [9*C, CO] with rows
-    ordered (ky, kx, cin). A bf16 input runs the fused ``dcn_conv`` (K2 on
-    the card), an f32 input ``dcn_sample`` (K9) and a matrix product, as the
-    JAX module splits on its dtype.
+    ordered (ky, kx, cin). The route follows the JAX module's split
+    (vidar_tpu/models/resnet.py:105-164): a bf16 input runs the fused
+    ``dcn_conv`` (K2 on the card) where ``fused_dcn_fits(C, CO)``, else the
+    bf16 taps ``dcn_sample16`` (K10) and a bf16 matrix product; an f32 input
+    runs ``dcn_sample`` (K9) and an f32 matrix product.
     """
 
     def __init__(self, in_ch: int, features: int, dtype=None, device=None):
@@ -74,7 +76,13 @@ class DeformConv2d(nn.Module):
             b, h * w, 9)
         x_nhwc, mask = x.permute(0, 2, 3, 1), mask.reshape(b, h * w, 9)
         if x.dtype == torch.bfloat16:
-            out = dcn_conv(x_nhwc, sx, sy, mask, self.kernel.to(x.dtype))
+            kernel = self.kernel.to(x.dtype)
+            if fused_dcn_fits(x.shape[1], kernel.shape[1]):
+                out = dcn_conv(x_nhwc, sx, sy, mask, kernel)
+            else:
+                # the bf16 taps, then the product outside the kernel
+                # (vidar_tpu/models/resnet.py:128-132)
+                out = torch.matmul(dcn_sample16(x_nhwc, sx, sy, mask), kernel)
         elif x.dtype == torch.float32:
             # the taps, then the conv product outside the kernel, in f32
             # (vidar_tpu/models/resnet.py:137-164); the [b, h*w, 9*C] taps

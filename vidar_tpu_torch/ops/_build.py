@@ -46,6 +46,8 @@ SIGNATURES = {
                          _I, _I, _I, _I, _I, _I, _P),
     # x, sx, sy, mask, out, B, H, W, C, Q, stream
     'dcn_sample_forward': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x (bf16), sx, sy, mask, out (bf16), B, H, W, C, Q, stream
+    'dcn_sample16_forward': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # occ, occ_is_bf16, grids, radial, steps, out,
     # B, H, W, Z, N, G, act_exp, stream
     'ray_first_hit_forward': (_P, _I, _P, _P, _P, _P,

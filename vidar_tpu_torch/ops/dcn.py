@@ -1,5 +1,5 @@
 """Modulated 3x3 deformable convolution, DCNv2 (port of the DCN ops of
-vidar_tpu/ops/dcn_pallas.py), in two forms that share one adjoint:
+vidar_tpu/ops/dcn_pallas.py), in three forms that share one adjoint:
 
 * ``dcn_conv(x, sx, sy, mask, weight)``, the fused bf16 form: samples x
   [B, H, W, C] bilinearly at the per-tap pixel coordinates sx/sy [B, Q, 9]
@@ -12,11 +12,17 @@ vidar_tpu/ops/dcn_pallas.py), in two forms that share one adjoint:
   [B, Q, 9, C] f32, the conv product left to the caller. Its forward is K9
   (``csrc/dcn_gather.cu``) on CUDA tensors and ``dcn_sample_plain`` on CPU
   tensors; it replaces ``dcn_gather``.
+* ``dcn_sample16(x, sx, sy, mask)``, the bf16 taps for a shape the fused
+  form does not take (``fused_dcn_fits``): K2's taps, rounded to bf16,
+  [B, Q, 9*C] with channels in natural order, the conv product left to the
+  caller. Its forward is K10 (``csrc/dcn_gather16.cu``) on CUDA tensors and
+  ``dcn_sample16_plain`` on CPU tensors; it replaces ``dcn16_gather``.
 
-Both backwards are the same chunked PyTorch on both devices: the JAX package
+The backwards are the same chunked PyTorch on both devices: the JAX package
 computes them in XLA, not Pallas (``_dcn_conv16_vbwd``, dcn_pallas.py:743-842;
-``jax.vjp`` of ``_dcn_sample_ref``, :232-235), so their matrix products go to
-``torch.matmul`` and their table scatter to ``index_add_``.
+``jax.vjp`` of ``_dcn_sample_ref``, :232-235; ``_dcn_sample16_vbwd``, :455),
+so their matrix products go to ``torch.matmul`` and their table scatter to
+``index_add_``.
 """
 
 from __future__ import annotations
@@ -32,9 +38,22 @@ KERNEL = KernelCounter(
 SAMPLE = KernelCounter(
     'dcn_sample_forward', source='vidar_tpu_torch/csrc/dcn_gather.cu',
     replaces='vidar_tpu/ops/dcn_pallas.py:96 (dcn_gather)')
+SAMPLE16 = KernelCounter(
+    'dcn_sample16_forward', source='vidar_tpu_torch/csrc/dcn_gather16.cu',
+    replaces='vidar_tpu/ops/dcn_pallas.py:336 (dcn16_gather)')
 
 TAPS = 9
 BACKWARD_CHUNK = 2048  # queries per step of the backward
+
+
+def fused_dcn_fits(c: int, co: int) -> bool:
+    """Whether K2 takes a bf16 deformable conv of C input and CO output
+    channels: its K slices are 32 channels of one tap and its output tiles
+    128 channels. Any other bf16 shape samples its taps with
+    ``dcn_sample16`` (K10) and multiplies outside, as the JAX module does
+    where ``dcn_conv16_available`` fails (vidar_tpu/models/resnet.py:
+    120-132)."""
+    return c % 32 == 0 and co % 128 == 0
 
 
 def _corners(sx, sy, h: int, w: int):
@@ -133,25 +152,30 @@ def dcn_sample_backward(x, sx, sy, mask, g, chunk=BACKWARD_CHUNK):
         chunk=chunk)
 
 
+def _taps16_plain(x, sx, sy, mask, i):
+    """The taps of image i as K2 and K10 make them: per corner the weight
+    (bilinear x mask) first, the corners summed in f32 in the order (y0 x0,
+    y0 x1, y1 x0, y1 x1), as ``dcn16_gather`` folds them (dcn_pallas.py:
+    311-321), then rounded to x's dtype -> [Q, 9*C]."""
+    _, h, w, c = x.shape
+    q = sx.shape[1]
+    flat = x[i].reshape(h * w, c)
+    taps = None
+    for idx, wgt in bilinear_corners(sx[i].reshape(-1).float(),
+                                     sy[i].reshape(-1).float(), h, w):
+        wm = wgt * mask[i].reshape(-1).float()
+        term = flat[idx].float() * wm[:, None]
+        taps = term if taps is None else taps + term
+    return taps.to(x.dtype).reshape(q, TAPS * c)
+
+
 def dcn_conv_plain(x: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
                    mask: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of K2, one image at a time (the [Q, 9*C] tap
     matrix of one image is the largest temporary)."""
-    b, h, w, c = x.shape
-    _, q, s = sx.shape
     wf = weight.float()
-    outs = []
-    for i in range(b):
-        flat = x[i].reshape(h * w, c)
-        taps = None
-        for idx, wgt in bilinear_corners(sx[i].reshape(-1).float(),
-                                         sy[i].reshape(-1).float(), h, w):
-            wm = wgt * mask[i].reshape(-1).float()
-            term = flat[idx].float() * wm[:, None]
-            taps = term if taps is None else taps + term
-        taps = taps.to(x.dtype).float().reshape(q, s * c)
-        outs.append(taps @ wf)
-    return torch.stack(outs)
+    return torch.stack([_taps16_plain(x, sx, sy, mask, i).float() @ wf
+                        for i in range(x.shape[0])])
 
 
 def dcn_conv_cuda(x: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
@@ -178,11 +202,16 @@ def dcn_conv_cuda(x: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
     _, q, s = sx.shape
     co = weight.shape[-1]
     if (s != TAPS or sx.shape[0] != b or sy.shape != sx.shape or
-            mask.shape != sx.shape or weight.shape != (TAPS * c, co) or
-            c % 32 or co % 128):
+            mask.shape != sx.shape or weight.shape != (TAPS * c, co)):
         raise ValueError(
             f'dcn_conv_forward: shapes x {tuple(x.shape)}, taps '
             f'{tuple(sx.shape)}, weight {tuple(weight.shape)}')
+    if not fused_dcn_fits(c, co):
+        raise ValueError(
+            f'dcn_conv_forward: takes C % 32 == 0 and CO % 128 == 0, not C '
+            f'{c}, CO {co}; such a deformable conv samples its taps with '
+            f'dcn_sample16 (K10) and multiplies them by the weight outside '
+            f'(models.resnet.DeformConv2d)')
     if not all(t.is_contiguous() for t in (x, sx, sy, mask, weight)):
         raise ValueError('dcn_conv_forward: inputs must be contiguous')
     out = torch.empty(b, q, co, dtype=torch.float32, device=dev)
@@ -304,3 +333,79 @@ def dcn_sample(x: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
     return _DCNSample.apply(x.contiguous(), sx.float().contiguous(),
                             sy.float().contiguous(),
                             mask.float().contiguous())
+
+
+def dcn_sample16_plain(x: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
+                       mask: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K10, one image at a time: K2's taps [B, Q,
+    9*C] in x's dtype, channels in natural order (``dcn16_gather`` emits
+    them evens || odds, ``dcn16_channel_perm``, dcn_pallas.py:390)."""
+    return torch.stack([_taps16_plain(x, sx, sy, mask, i)
+                        for i in range(x.shape[0])])
+
+
+def dcn_sample16_cuda(x: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
+                      mask: torch.Tensor) -> torch.Tensor:
+    """Launch K10. x [B, H, W, C] bf16 (any C), sx/sy/mask [B, Q, 9] f32,
+    all contiguous on one CUDA device -> [B, Q, 9*C] bf16. The kernel reads
+    8 channels at a time where C % 8 == 0 and x starts on a 16-byte
+    boundary, one at a time otherwise."""
+    dev = x.device
+    if not (x.is_cuda and sx.device == sy.device == mask.device == dev):
+        raise ValueError('dcn_sample16_forward: all inputs must be on one '
+                         'CUDA device')
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f'dcn_sample16_forward: x must be bfloat16, not '
+                        f'{x.dtype} (an f32 deformable conv runs dcn_sample, '
+                        f'K9)')
+    if not all(t.dtype == torch.float32 for t in (sx, sy, mask)):
+        raise TypeError('dcn_sample16_forward: sx, sy, mask must be float32')
+    if x.dim() != 4 or sx.dim() != 3:
+        raise ValueError('dcn_sample16_forward: bad ranks')
+    b, h, w, c = x.shape
+    _, q, s = sx.shape
+    if (s != TAPS or sx.shape[0] != b or sy.shape != sx.shape or
+            mask.shape != sx.shape):
+        raise ValueError(f'dcn_sample16_forward: shapes x {tuple(x.shape)}, '
+                         f'taps {tuple(sx.shape)}')
+    if not all(t.is_contiguous() for t in (x, sx, sy, mask)):
+        raise ValueError('dcn_sample16_forward: inputs must be contiguous')
+    out = torch.empty(b, q, s * c, dtype=torch.bfloat16, device=dev)
+    lib = load_library()
+    with torch.cuda.device(dev):
+        rc = lib.dcn_sample16_forward(
+            x.data_ptr(), sx.data_ptr(), sy.data_ptr(), mask.data_ptr(),
+            out.data_ptr(), b, h, w, c, q, stream_of(x))
+    check(rc, 'dcn_sample16_forward')
+    SAMPLE16.launched(x=x, sx=sx, sy=sy, mask=mask)
+    return out
+
+
+class _DCNSample16(torch.autograd.Function):
+    """K10 (CUDA) or the plain version (CPU) forward; the chunked PyTorch
+    backward on both, the adjoint of the taps before their rounding, as
+    ``_dcn_sample16_vbwd`` (dcn_pallas.py:455) takes it."""
+
+    @staticmethod
+    def forward(ctx, x, sx, sy, mask):
+        ctx.save_for_backward(x, sx, sy, mask)
+        if x.device.type == 'cpu':
+            return dcn_sample16_plain(x, sx, sy, mask)
+        return dcn_sample16_cuda(x, sx, sy, mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, sx, sy, mask = ctx.saved_tensors
+        b, q = sx.shape[:2]
+        return dcn_sample_backward(x, sx, sy, mask,
+                                   g.reshape(b, q, TAPS, x.shape[-1]))
+
+
+def dcn_sample16(x: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
+                 mask: torch.Tensor) -> torch.Tensor:
+    """Modulated deformable-conv taps of a bf16 map -> [B, Q, 9*C] in x's
+    dtype: K10 for CUDA tensors, the plain version for CPU tensors;
+    ``dcn_sample_backward`` for the gradient on both."""
+    return _DCNSample16.apply(x.contiguous(), sx.float().contiguous(),
+                              sy.float().contiguous(),
+                              mask.float().contiguous())
