@@ -14,7 +14,8 @@ it drives; a kernel of the path that never launched fails the run:
 0. the card (``nvidia-smi`` name and power limit), torch and CUDA versions,
    and the TF32 switches, set explicitly (off);
 1. the build of the CUDA kernels from ``vidar_tpu_torch/csrc`` (K1-K4, the
-   backwards K5, K6/K7, K8, K9 and K10);
+   backwards K5, K6/K7, K8, K9 and K10), and K2's ``wgmma`` instructions
+   counted in ``cuobjdump -sass`` of the build;
 2. one full forecast of ``vidar_base`` in bf16 at the nuScenes shapes of
    bench.py (bs 1, 4+1 frames, 6 cameras, 928x1600, 6 futures, 32768 rays),
    random weights (N(0, 1) x 0.02 from a seeded generator), through
@@ -24,7 +25,8 @@ it drives; a kernel of the path that never launched fails the run:
 3. each forward kernel against its plain PyTorch version on the kept
    inputs: error and CUDA-event times of both, and the bound: the larger of
    the bytes the function must move over 3.35 TB/s and its floating-point
-   operations over the card's peak rate for their type;
+   operations over the card's peak rate for their type, with the share of
+   it each kernel reaches (bound / time);
 4. a second, timed forecast: seconds, samples/s, peak device memory (the
    forecast's own: the train model does not exist yet);
 5. the first (warm-up) pre-training step of ``vidar_base`` at full width
@@ -37,9 +39,10 @@ it drives; a kernel of the path that never launched fails the run:
    (``vidar_tiny``, one forward and backward on the card and on the CPU,
    same weights and batch: the losses and the cosine similarity of the
    gradients); each backward kernel against autograd of its plain forward
-   in f32 on the kept inputs, as in phase 3; then two timed steps, the
-   forward alone (autograd on, the graph freed without a backward) and the
-   step's peak device memory;
+   in f32 on the kept inputs, and K2 on the step's one-image
+   (camera-sequential backbone) and 24-image (history) stage-3 inputs, as
+   in phase 3; then two timed steps, the forward alone (autograd on, the
+   graph freed without a backward) and the step's peak device memory;
 6. the f32 fine-tune ``BEVFormer(**vidar_finetune_1_8_nusc_3future())`` at
    full width and depth, random weights as above (bs 1, 4+1 frames, 6
    cameras at 928x1600, 900 queries, 200x200 BEV, 40 synthetic GT boxes of
@@ -83,6 +86,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -194,6 +198,14 @@ def _det_msda_case(args):
 def _dcn_case(args):
     return {64: 'stage1', 128: 'stage2', 256: 'stage3',
             512: 'stage4'}.get(args['x'].shape[-1])
+
+
+def _dcn_conv_case(args):
+    """K2's case by ResNet stage and image count: the 30 images of a window
+    (forecast, eval) keep the stage's name; the pre-training step's 24-image
+    history and 1-image camera-sequential calls add ``,b24`` and ``,b1``."""
+    stage, b = _dcn_case(args), args['x'].shape[0]
+    return stage if stage is None or b == 30 else f'{stage},b{b}'
 
 
 def _run_counted(kernels, keepers, fn):
@@ -566,10 +578,21 @@ def main() -> int:
           f' | matmul.allow_tf32=False cudnn.allow_tf32=False (f32 islands '
           f'run in full f32; the bf16 model is unaffected)', flush=True)
 
-    # -- phase 1: build
-    _build.load_library()
+    # -- phase 1: build; K2 must issue its product with wgmma (HGMMA)
+    lib = _build.load_library()
     print(f'build: {_build.build_seconds:.1f} s -> {_build.BUILD_DIR}',
           flush=True)
+    sass = subprocess.run(
+        [str(Path(_build._nvcc()).with_name('cuobjdump')), '-sass',
+         lib._name], capture_output=True, text=True, timeout=120,
+        check=True).stdout
+    # each function's SASS runs from its "Function :" line to the next
+    hgmma = sum(chunk.split('Function :')[0].count('HGMMA')
+                for chunk in sass.split('dcn_conv_kernel')[1:])
+    print(f'cuobjdump -sass: {hgmma} HGMMA instructions in K2 '
+          f'(dcn_conv_kernel)', flush=True)
+    if not hgmma:
+        raise RuntimeError('K2 was built without wgmma')
 
     forward_kernels = [msda.KERNEL, dcn.KERNEL, latent_render.FIRST_HIT,
                        latent_render.AGGREGATE]
@@ -580,7 +603,7 @@ def main() -> int:
     # counts both
     counted = kernels + [dcn.SAMPLE, dcn.SAMPLE16]
     keepers = {msda.KERNEL.name: _Keeper(_msda_case),
-               dcn.KERNEL.name: _Keeper(_dcn_case),
+               dcn.KERNEL.name: _Keeper(_dcn_conv_case),
                latent_render.FIRST_HIT.name: _Keeper(lambda a: 'encoder'),
                latent_render.AGGREGATE.name: _Keeper(lambda a: 'encoder')}
 
@@ -621,7 +644,8 @@ def main() -> int:
         lib = '' if library_ms is None else f', library {library_ms:.3f} ms'
         print(f'{counter.name}[{case}]: max_abs_err {err:.3g} (max|plain| '
               f'{scale:.4g}) kernel {ms:.3f} ms, plain {plain_ms:.3f} ms'
-              f'{lib}, bound {bound_ms:.4f} ms ({bound_by}) -> '
+              f'{lib}, bound {bound_ms:.4f} ms ({bound_by}, '
+              f'{bound_ms / ms:.1%} of it reached) -> '
               f'{"ok" if ok else "FAIL"}', flush=True)
         results.append(dict(
             name=f'{counter.name}[{case}]', route='cuda',
@@ -748,9 +772,10 @@ def main() -> int:
     keepers = {k.name: _Keeper(_msda_case if k is msda.BACKWARD
                                else lambda a: 'encoder')
                for k in backward_kernels}
-    # the forward kernels' launches by case, as in phase 2
+    # the forward kernels' launches by case, as in phase 2; K2's one-image
+    # and 24-image stage-3 inputs are kept
     keepers.update({msda.KERNEL.name: _Keeper(_msda_case),
-                    dcn.KERNEL.name: _Keeper(_dcn_case)})
+                    dcn.KERNEL.name: _Keeper(_dcn_conv_case)})
     t0 = time.perf_counter()
     metrics, train_launches = _run_counted(counted, keepers,
                                            lambda: step(tr_batch))
@@ -839,10 +864,22 @@ def main() -> int:
         return oks
 
     oks = compare_backwards(keepers, 'encoder', train_launches)
+    # K2 on the step's own inputs: the camera-sequential backbone's
+    # one-image calls and the history's 24-image calls, as in phase 3
+    kept = keepers[dcn.KERNEL.name].inputs
+    for case in ('stage3,b1', 'stage3,b24'):
+        if case not in kept:
+            raise RuntimeError(f'the train step never ran K2 at {case}')
+        a = kept[case]
+        args = (a['x'], a['sx'], a['sy'], a['mask'], a['weight'])
+        oks.append(compare(dcn.KERNEL, case, a,
+                           lambda args=args: dcn.dcn_conv_cuda(*args),
+                           lambda args=args: dcn.dcn_conv_plain(*args),
+                           n=train_launches))
     keepers.clear()
     if not all(oks):
-        raise RuntimeError('a backward kernel disagrees with its plain '
-                           'version')
+        raise RuntimeError('a backward kernel or K2 disagrees with its plain '
+                           'version on the train step')
 
     # two timed steps, then the forward alone as the step runs it (autograd
     # on, activations saved), its graph freed without a backward
@@ -1145,7 +1182,7 @@ def main() -> int:
                                  max_points=pts, device=dev)
     runner = ForecastRunner(model, (ih, iw), num_future=f, device=dev)
     keepers = {dcn.SAMPLE16.name: _Keeper(_dcn_case),
-               dcn.KERNEL.name: _Keeper(_dcn_case)}
+               dcn.KERNEL.name: _Keeper(_dcn_conv_case)}
     t0 = time.perf_counter()
     out, dcn_launches = _run_counted(counted, keepers, lambda: runner(batch))
     print(f'all-DCN forecast 1 (incl. warm-up): '

@@ -56,6 +56,47 @@ def test_msda_kernel_matches_plain(dev, case):
     assert err <= 1e-5 + 1e-4 * want.abs().max().item(), err
 
 
+@pytest.mark.parametrize('case', ['tsa', 'sca'])
+@pytest.mark.parametrize('dim', [8, 16, 32, 20])
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_msda_kernel_paths_match_plain(dev, case, dim, dtype):
+    """K1's vector path (dims 8, 16, 32: rows of 1, 2 or 4 16-byte chunks in
+    bf16, 2, 4 or 8 in f32) and its scalar path (dim 20, and a value off a
+    16-byte boundary) against the plain version: P = 4 on one level (TSA)
+    and P = 8 on four levels (SCA), a Q that leaves the last block ragged,
+    and samples off the map on every level."""
+    rng = np.random.default_rng(10)
+    if case == 'tsa':
+        shapes, b, q, heads, p = [(40, 50)], 2, 1001, 8, 4
+    else:
+        shapes, b, q, heads, p = [(29, 50), (15, 25), (8, 13), (4, 7)], 3, \
+            777, 8, 8
+    v_len = sum(h * w for h, w in shapes)
+    value = _t(rng.standard_normal((b, v_len, heads, dim)), dev, dtype)
+    # samples off the map on every level: every 7th query's wholly (x =
+    # -3), and about half of the rest in part
+    loc = rng.uniform(-0.2, 1.2, (b, q, heads, len(shapes), p, 2))
+    loc[:, ::7, ..., 0] = -3.0
+    loc = _t(loc, dev)
+    w = rng.uniform(size=(b, q, heads, len(shapes) * p))
+    w = _t((w / w.sum(-1, keepdims=True)).reshape(b, q, heads, len(shapes),
+                                                  p), dev)
+    shifted = torch.empty(value.numel() + 1, dtype=dtype, device=dev)[1:]
+    shifted = shifted.view(value.shape).copy_(value)
+    assert shifted.data_ptr() % 16
+    want = msda.msdeform_attn_plain(value, shapes, loc, w)
+    before = msda.KERNEL.launches
+    for v in (value, shifted):
+        got = msda.msda_forward_cuda(v, shapes, loc, w)
+        torch.cuda.synchronize()
+        assert got.shape == (b, q, heads * dim)
+        # f32 sums of <= 32 samples x 4 corners in another order
+        err = (got - want).abs().max().item()
+        assert err <= 1e-5 + 1e-4 * want.abs().max().item(), err
+        assert not bool(got.reshape(b, q, heads, dim)[:, ::7].any())
+    assert msda.KERNEL.launches == before + 2
+
+
 def test_msda_kernel_rejects_bad_input(dev):
     value = torch.zeros(1, 16, 8, 32, device=dev, dtype=torch.float16)
     loc = torch.zeros(1, 4, 8, 1, 4, 2, device=dev)
@@ -88,6 +129,71 @@ def test_dcn_kernel_matches_plain(dev, c, co):
     # order over 9*C terms differs
     err = (got - want).abs().max().item()
     assert err <= 1e-3 * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize('case', [
+    # (images, h, w, C, CO): the tile K2 picks for the 132-SM card
+    (1, 5, 7, 256, 256),      # one image, Q under one tile: 64 x 128
+    (1, 58, 100, 256, 256),   # one stage-3 image: 64 x 128, 182 tiles
+    (2, 67, 127, 256, 256),   # ragged Q: 128 x 256
+    (3, 60, 97, 128, 128),    # 128 x 128
+    (1, 70, 123, 512, 512),   # two 256-channel tiles
+    (1, 50, 115, 96, 384),    # 9 * C = 864: a half K slice; 128 x 128
+])
+def test_dcn_kernel_tiles_match_plain(dev, case):
+    """K2 at every tile shape it picks, with a ragged Q, taps off the map,
+    a K that ends inside a slice and C, CO = 96, 384, against the plain
+    version."""
+    b, h, w, c, co = case
+    rng = np.random.default_rng(11)
+    x = _t(rng.standard_normal((b, h, w, c)), dev, torch.bfloat16)
+    sx, sy, mask = _dcn_taps(rng, b, h, w, dev)
+    weight = _t(rng.standard_normal((9 * c, co)) / np.sqrt(9 * c), dev,
+                torch.bfloat16)
+    before = dcn.KERNEL.launches
+    got = dcn.dcn_conv_cuda(x, sx, sy, mask, weight)
+    want = dcn.dcn_conv_plain(x, sx, sy, mask, weight)
+    torch.cuda.synchronize()
+    assert dcn.KERNEL.launches == before + 1
+    assert got.shape == (b, h * w, co)
+    # same bf16 taps and exact bf16 products; only the f32 accumulation
+    # order over 9*C terms differs
+    err = (got - want).abs().max().item()
+    assert err <= 1e-3 * want.abs().max().item(), err
+
+
+def test_dcn_kernel_taps_equal_plain(dev):
+    """With the identity as its weight, K2's output is its bf16 taps: equal,
+    bit for bit, to ``_taps16_plain`` (but for a sign of zero)."""
+    rng = np.random.default_rng(12)
+    b, h, w, c = 2, 40, 70, 256
+    x = _t(rng.standard_normal((b, h, w, c)), dev, torch.bfloat16)
+    sx, sy, mask = _dcn_taps(rng, b, h, w, dev)
+    eye = torch.eye(9 * c, dtype=torch.bfloat16, device=dev)
+    got = dcn.dcn_conv_cuda(x, sx, sy, mask, eye)
+    torch.cuda.synchronize()
+    for i in range(b):
+        want = dcn._taps16_plain(x, sx, sy, mask, i).float()
+        assert torch.equal(got[i], want)
+
+
+def test_dcn_kernel_rejects_misaligned_x(dev):
+    """K2 reads x in 16-byte chunks: a contiguous view that starts off a
+    16-byte boundary is refused before the launch, with no CUDA error."""
+    rng = np.random.default_rng(13)
+    x = torch.randn(2 * 5 * 7 * 32 + 1, device=dev,
+                    dtype=torch.bfloat16)[1:].view(2, 5, 7, 32)
+    sx, sy, mask = _dcn_taps(rng, 2, 5, 7, dev)
+    weight = torch.randn(9 * 32, 128, device=dev, dtype=torch.bfloat16)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    before = dcn.KERNEL.launches
+    with pytest.raises(ValueError, match='16-byte'):
+        dcn.dcn_conv_cuda(x, sx, sy, mask, weight)
+    assert dcn.KERNEL.launches == before
+    got = dcn.dcn_conv_cuda(x.clone(), sx, sy, mask, weight)
+    want = dcn.dcn_conv_plain(x, sx, sy, mask, weight)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-3 * want.abs().max().item()
 
 
 @pytest.mark.parametrize('c', [256, 512])

@@ -48,8 +48,9 @@ BACKWARD_CHUNK = 2048  # queries per step of the backward
 
 def fused_dcn_fits(c: int, co: int) -> bool:
     """Whether K2 takes a bf16 deformable conv of C input and CO output
-    channels: its K slices are 32 channels of one tap and its output tiles
-    128 channels. Any other bf16 shape samples its taps with
+    channels: C % 32 == 0 and CO % 128 == 0, the JAX module's split, which
+    K2's 64-channel K slices (the last one padded) and 128- or 256-channel
+    output tiles cover. Any other bf16 shape samples its taps with
     ``dcn_sample16`` (K10) and multiplies outside, as the JAX module does
     where ``dcn_conv16_available`` fails (vidar_tpu/models/resnet.py:
     120-132)."""
@@ -182,7 +183,7 @@ def dcn_conv_cuda(x: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
                   mask: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """Launch K2. x [B, H, W, C] bf16 (C % 32 == 0), sx/sy/mask [B, Q, 9]
     f32, weight [9*C, CO] bf16 (CO % 128 == 0), all contiguous on one CUDA
-    device -> [B, Q, CO] f32."""
+    device, x and weight on 16-byte boundaries -> [B, Q, CO] f32."""
     dev = x.device
     if not (x.is_cuda and sx.device == sy.device == mask.device ==
             weight.device == dev):
@@ -214,6 +215,10 @@ def dcn_conv_cuda(x: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
             f'(models.resnet.DeformConv2d)')
     if not all(t.is_contiguous() for t in (x, sx, sy, mask, weight)):
         raise ValueError('dcn_conv_forward: inputs must be contiguous')
+    if x.data_ptr() % 16 or weight.data_ptr() % 16:
+        raise ValueError('dcn_conv_forward: x and weight must start on a '
+                         '16-byte boundary (K2 reads their rows in 16-byte '
+                         'chunks)')
     out = torch.empty(b, q, co, dtype=torch.float32, device=dev)
     lib = load_library()
     with torch.cuda.device(dev):
