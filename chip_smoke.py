@@ -14,8 +14,8 @@ it drives; a kernel of the path that never launched fails the run:
 0. the card (``nvidia-smi`` name and power limit), torch and CUDA versions,
    and the TF32 switches, set explicitly (off);
 1. the build of the CUDA kernels from ``vidar_tpu_torch/csrc`` (K1-K4, the
-   backwards K5, K6/K7, K8, K9 and K10), and K2's ``wgmma`` instructions
-   counted in ``cuobjdump -sass`` of the build;
+   backwards K5, K6/K7, K8, K9 and K10), K2's ``wgmma`` instructions and
+   K5's vector f32 reductions counted in ``cuobjdump -sass`` of the build;
 2. one full forecast of ``vidar_base`` in bf16 at the nuScenes shapes of
    bench.py (bs 1, 4+1 frames, 6 cameras, 928x1600, 6 futures, 32768 rays),
    random weights (N(0, 1) x 0.02 from a seeded generator), through
@@ -60,7 +60,10 @@ it drives; a kernel of the path that never launched fails the run:
    and gradient norm; parameters move; each backward kernel's first f32
    input is kept), the small-input fine-tune train check (losses and
    gradient cosine, card vs CPU), K5 at the TSA, SCA and decoder inputs and
-   K6/K7 and K8 against autograd of their plain forwards, as in phase 5,
+   K6/K7 and K8 against autograd of their plain forwards, as in phase 5, K9
+   on the step's one-image (camera-sequential) and 24-image (history)
+   stage-3 and stage-4 inputs (cases ``stage3,b1`` ... ``stage4,b24``) with
+   ``F.grid_sample`` as the library yardstick, as in phase 6,
    two timed steps with peak device memory, and one step with the host's
    Hungarian calls timed;
 8. the bf16 forecast of ``vidar_base`` with a deformable conv in every
@@ -200,9 +203,9 @@ def _dcn_case(args):
             512: 'stage4'}.get(args['x'].shape[-1])
 
 
-def _dcn_conv_case(args):
-    """K2's case by ResNet stage and image count: the 30 images of a window
-    (forecast, eval) keep the stage's name; the pre-training step's 24-image
+def _dcn_image_case(args):
+    """K2's or K9's case by ResNet stage and image count: the 30 images of a
+    window (forecast, eval) keep the stage's name; a train step's 24-image
     history and 1-image camera-sequential calls add ``,b24`` and ``,b1``."""
     stage, b = _dcn_case(args), args['x'].shape[0]
     return stage if stage is None or b == 30 else f'{stage},b{b}'
@@ -593,6 +596,16 @@ def main() -> int:
           f'(dcn_conv_kernel)', flush=True)
     if not hgmma:
         raise RuntimeError('K2 was built without wgmma')
+    # K5 scatters 4 channels an instruction: Hopper's vector f32 reductions
+    # (red.global.add.v4.f32)
+    k5_sass = sass.split('msda_backward_vec_kernel')[1:]
+    red4 = [line.strip() for chunk in k5_sass
+            for line in chunk.split('Function :')[0].splitlines()
+            if ('RED' in line or 'ATOM' in line) and 'F32x4' in line]
+    print(f'cuobjdump -sass: {len(red4)} vector f32 reductions in K5 '
+          f'(msda_backward_vec_kernel), e.g. {red4[:1]}', flush=True)
+    if not red4:
+        raise RuntimeError('K5 was built without vector atomics')
 
     forward_kernels = [msda.KERNEL, dcn.KERNEL, latent_render.FIRST_HIT,
                        latent_render.AGGREGATE]
@@ -603,7 +616,7 @@ def main() -> int:
     # counts both
     counted = kernels + [dcn.SAMPLE, dcn.SAMPLE16]
     keepers = {msda.KERNEL.name: _Keeper(_msda_case),
-               dcn.KERNEL.name: _Keeper(_dcn_conv_case),
+               dcn.KERNEL.name: _Keeper(_dcn_image_case),
                latent_render.FIRST_HIT.name: _Keeper(lambda a: 'encoder'),
                latent_render.AGGREGATE.name: _Keeper(lambda a: 'encoder')}
 
@@ -775,7 +788,7 @@ def main() -> int:
     # the forward kernels' launches by case, as in phase 2; K2's one-image
     # and 24-image stage-3 inputs are kept
     keepers.update({msda.KERNEL.name: _Keeper(_msda_case),
-                    dcn.KERNEL.name: _Keeper(_dcn_conv_case)})
+                    dcn.KERNEL.name: _Keeper(_dcn_image_case)})
     t0 = time.perf_counter()
     metrics, train_launches = _run_counted(counted, keepers,
                                            lambda: step(tr_batch))
@@ -1067,7 +1080,7 @@ def main() -> int:
                                else lambda a: 'det_encoder')
                for k in backward_kernels}
     keepers.update({msda.KERNEL.name: _Keeper(_det_msda_case),
-                    dcn.SAMPLE.name: _Keeper(_dcn_case)})
+                    dcn.SAMPLE.name: _Keeper(_dcn_image_case)})
     t0 = time.perf_counter()
     metrics, det_train_launches = _run_counted(
         counted, keepers, lambda: det_step(det_batch))
@@ -1127,9 +1140,22 @@ def main() -> int:
     if kept != ['det_decoder', 'det_sca', 'det_tsa']:
         raise RuntimeError(f'the fine-tune step ran K5 for {kept} only')
     oks = compare_backwards(keepers, 'det_encoder', det_train_launches)
+    # K9 on the step's own inputs: the history's 24-image calls and the
+    # camera-sequential backbone's 1-image calls, at stages 3 and 4
+    kept = keepers[dcn.SAMPLE.name].inputs
+    for case in ('stage3,b1', 'stage3,b24', 'stage4,b1', 'stage4,b24'):
+        if case not in kept:
+            raise RuntimeError(f'the fine-tune step never ran K9 at {case}')
+        a = kept[case]
+        args = (a['x'], a['sx'], a['sy'], a['mask'])
+        oks.append(compare_dcn_taps(
+            dcn.SAMPLE, case, a, lambda args=args: dcn.dcn_sample_cuda(*args),
+            lambda args=args: dcn.dcn_sample_plain(*args),
+            det_train_launches))
     keepers.clear()
+    del kept, a, args  # the kept inputs stay out of the timed steps' peak
     if not all(oks):
-        raise RuntimeError('a backward kernel disagrees with its plain '
+        raise RuntimeError('a backward kernel or K9 disagrees with its plain '
                            'version on the fine-tune path')
 
     # two timed steps; then one with the host's Hungarian calls timed on
@@ -1182,7 +1208,7 @@ def main() -> int:
                                  max_points=pts, device=dev)
     runner = ForecastRunner(model, (ih, iw), num_future=f, device=dev)
     keepers = {dcn.SAMPLE16.name: _Keeper(_dcn_case),
-               dcn.KERNEL.name: _Keeper(_dcn_conv_case)}
+               dcn.KERNEL.name: _Keeper(_dcn_image_case)}
     t0 = time.perf_counter()
     out, dcn_launches = _run_counted(counted, keepers, lambda: runner(batch))
     print(f'all-DCN forecast 1 (incl. warm-up): '

@@ -196,8 +196,11 @@ def test_dcn_kernel_rejects_misaligned_x(dev):
     assert (got - want).abs().max().item() <= 1e-3 * want.abs().max().item()
 
 
-@pytest.mark.parametrize('c', [256, 512])
+@pytest.mark.parametrize('c', [256, 512, 6, 66])
 def test_dcn_sample_kernel_matches_plain(dev, c):
+    """K9 against its plain version: C = 256 and 512 take the float4
+    kernel, C = 6 and 66 (not multiples of 4) the scalar one, and a view
+    off a 16-byte boundary the scalar one at every C."""
     rng = np.random.default_rng(8)
     b, h, w = 2, 13, 21
     q = h * w
@@ -215,34 +218,38 @@ def test_dcn_sample_kernel_matches_plain(dev, c):
     sy[0, 0] = [0.5, h - 0.5, -0.5, h - 1.0, -1.0, 2.0, h + 0.25, 1.0, -2.0]
     mask = _t(rng.uniform(size=(b, q, 9)), dev)
     sx, sy = _t(sx, dev), _t(sy, dev)
+    shifted = torch.empty(x.numel() + 1, device=dev)[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16
     before = dcn.SAMPLE.launches
-    got = dcn.dcn_sample_cuda(x, sx, sy, mask)
     want = dcn.dcn_sample_plain(x, sx, sy, mask)
-    torch.cuda.synchronize()
-    assert dcn.SAMPLE.launches == before + 1
-    # the plain version's products and sum order, without FMAs
-    err = (got - want).abs().max().item()
-    assert err <= 1e-5 * want.abs().max().item(), err
-    assert not bool(got[0, 0, 8].any())
+    for xi in (x, shifted):
+        got = dcn.dcn_sample_cuda(xi, sx, sy, mask)
+        torch.cuda.synchronize()
+        # the plain version's products and sum order, without FMAs
+        err = (got - want).abs().max().item()
+        assert err <= 1e-5 * want.abs().max().item(), err
+        assert not bool(got[0, 0, 8].any())
+    assert dcn.SAMPLE.launches == before + 2
 
 
 def test_dcn_sample_kernel_rejects_misaligned_x(dev):
-    """K9 reads x as float4: a contiguous view that starts off a 16-byte
-    boundary is refused before the launch, with no sticky CUDA error."""
+    """K9 used to refuse a contiguous view of x that starts off a 16-byte
+    boundary; its scalar kernel now takes it: the view and a fresh copy of
+    it both launch K9 and give the plain version's taps."""
     x = torch.randn(1 * 3 * 4 * 8 + 1, device=dev)[1:].view(1, 3, 4, 8)
     sx = torch.rand(1, 12, 9, device=dev) * 3
     sy, mask = sx.clone(), torch.ones_like(sx)
     assert x.is_contiguous() and x.data_ptr() % 16
     before = dcn.SAMPLE.launches
-    with pytest.raises(ValueError, match='16-byte'):
-        dcn.dcn_sample_cuda(x, sx, sy, mask)
-    assert dcn.SAMPLE.launches == before
-    torch.cuda.synchronize()
     want = dcn.dcn_sample_plain(x, sx, sy, mask)
-    got = dcn.dcn_sample_cuda(x.clone(), sx, sy, mask)
-    torch.cuda.synchronize()
-    assert dcn.SAMPLE.launches == before + 1
-    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    for xi in (x, x.clone()):
+        got = dcn.dcn_sample_cuda(xi, sx, sy, mask)
+        torch.cuda.synchronize()
+        # the plain version's products and sum order, without FMAs
+        assert (got - want).abs().max().item() <= \
+            1e-5 * want.abs().max().item()
+    assert dcn.SAMPLE.launches == before + 2
 
 
 def test_f32_deform_conv_launches_dcn_sample(dev):
@@ -263,6 +270,57 @@ def test_f32_deform_conv_launches_dcn_sample(dev):
     assert out.dtype == torch.float32 and bool(torch.isfinite(out).all())
     assert (dcn.SAMPLE.launches, dcn.KERNEL.launches) == (counts[0] + 1,
                                                           counts[1] + 1)
+
+
+def test_f32_deform_conv_any_channels(dev):
+    """An f32 DeformConv2d with C = 6 (K9's scalar kernel) runs on the card
+    and agrees with the same module on the CPU."""
+    from vidar_tpu_torch.models.resnet import DeformConv2d
+    torch.manual_seed(0)
+    mod = DeformConv2d(6, 64, device=dev)
+    torch.nn.init.normal_(mod.conv_offset.weight, std=0.1)
+    torch.nn.init.normal_(mod.conv_offset.bias, std=1.5)
+    torch.nn.init.normal_(mod.kernel, std=1 / 54 ** 0.5)
+    x = torch.randn(1, 6, 8, 8, device=dev)
+    before = dcn.SAMPLE.launches
+    with torch.no_grad():
+        out = mod(x)
+    torch.cuda.synchronize()
+    assert dcn.SAMPLE.launches == before + 1
+    assert out.shape == (1, 64, 8, 8)
+    cpu = DeformConv2d(6, 64, device='cpu')
+    cpu.load_state_dict({k: v.cpu() for k, v in mod.state_dict().items()})
+    with torch.no_grad():
+        ref = cpu(x.cpu())
+    # f32 throughout, TF32 off: the offset conv and the product sum in
+    # another order on the two devices
+    torch.testing.assert_close(out.cpu(), ref, atol=1e-4, rtol=1e-4)
+
+
+def test_dcn_conv_copies_misaligned_inputs(dev):
+    """``dcn_conv`` on a bf16 x and a weight that start off a 16-byte
+    boundary: the wrapper copies them, K2 runs once and meets the plain
+    version, and the input gradient flows back to the views."""
+    rng = np.random.default_rng(14)
+    b, h, w, c, co = 2, 5, 7, 32, 128
+    x = torch.randn(b * h * w * c + 1, device=dev,
+                    dtype=torch.bfloat16)[1:].view(b, h, w, c)
+    weight = torch.empty(9 * c * co + 1, device=dev,
+                         dtype=torch.bfloat16)[1:].view(9 * c, co)
+    weight.copy_(torch.randn(9 * c, co, device=dev) * (9 * c) ** -0.5)
+    assert x.data_ptr() % 16 and weight.data_ptr() % 16
+    sx, sy, mask = _dcn_taps(rng, b, h, w, dev)
+    before = dcn.KERNEL.launches
+    xg = x.detach().requires_grad_()
+    got = dcn.dcn_conv(xg, sx, sy, mask, weight)
+    want = dcn.dcn_conv_plain(x, sx, sy, mask, weight)
+    got.sum().backward()
+    torch.cuda.synchronize()
+    assert dcn.KERNEL.launches == before + 1
+    # same bf16 taps and exact bf16 products; only the f32 accumulation
+    # order over 9*C terms differs
+    assert (got - want).abs().max().item() <= 1e-3 * want.abs().max().item()
+    assert xg.grad is not None and bool(torch.isfinite(xg.grad).all())
 
 
 def _dcn_taps(rng, b, h, w, dev):
@@ -407,6 +465,39 @@ def test_aggregate_kernel_matches_plain(dev, c_r, z, dtype):
     assert err <= 1e-4 * max(1.0, want.abs().max().item()), err
 
 
+@pytest.mark.parametrize('c_r,z', [(16, 16), (8, 4), (16, 1), (4, 4),
+                                    (16, 8)])
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_aggregate_kernel_paths_match_plain(dev, c_r, z, dtype):
+    """K4 at groups c_r / Z of 1, 2, 16 and 2 more shapes: the vector kernel
+    runs the presets' shapes where c_r and Z are whole 16-byte chunks (f32
+    (16, 16) with four lanes a waypoint, bf16 (16, 16) with two, f32 (4, 4)
+    with one), the scalar one every other shape and a map off a 16-byte
+    boundary; 256 waypoints, as the flagship's rays."""
+    rng = np.random.default_rng(18)
+    h, w = 50, 70
+    fmap = _t(np.concatenate([rng.standard_normal((2, h, w, c_r)),
+                              rng.uniform(0, 1, (2, h, w, z))], -1), dev,
+              dtype)
+    shifted = torch.empty(fmap.numel() + 1, dtype=dtype, device=dev)[1:]
+    shifted = shifted.view(fmap.shape).copy_(fmap)
+    assert shifted.data_ptr() % 16
+    grids, rn, steps = _geometry(h, w, 256, dev)
+    want = latent_render.ray_aggregate_plain(fmap, grids, rn, steps, c_r, z,
+                                             1e-3)
+    before = latent_render.AGGREGATE.launches
+    for fm in (fmap, shifted):
+        got = latent_render.ray_aggregate_cuda(fm, grids, rn, steps, c_r, z,
+                                               1e-3)
+        torch.cuda.synchronize()
+        assert got.shape == (2, h * w, c_r)
+        # two f32 sums over <= 256 waypoints in another order, then a
+        # division
+        err = (got - want).abs().max().item()
+        assert err <= 1e-4 * max(1.0, want.abs().max().item()), err
+    assert latent_render.AGGREGATE.launches == before + 2
+
+
 def _plain_grads(fn, inputs, g):
     """Autograd of a plain version in f32 (a bf16 input is upcast: the same
     values, the gradient summed in f32): the gradient of <fn(*inputs), g>
@@ -452,6 +543,118 @@ def test_msda_backward_kernel_matches_plain(dev, case):
     assert _rel_err(dv, want[0]) <= tol
     assert _rel_err(dl, want[1]) <= 1e-4
     assert _rel_err(dw, want[2]) <= 1e-4
+
+
+def _msda_inputs(rng, case, dim, dtype, dev, b=None):
+    """A TSA-like (one level, P = 4) or SCA-like (four levels, P = 8) call
+    with a Q that leaves the last block ragged, samples off the map on every
+    level (every 7th query's wholly), and unit-scale dout."""
+    if case == 'tsa':
+        shapes, b0, q, heads, p = [(40, 50)], 2, 1001, 8, 4
+    else:
+        shapes, b0, q, heads, p = [(29, 50), (15, 25), (8, 13), (4, 7)], 3, \
+            777, 8, 8
+    b = b or b0
+    v_len = sum(h * w for h, w in shapes)
+    value = _t(rng.standard_normal((b, v_len, heads, dim)), dev, dtype)
+    loc = rng.uniform(-0.2, 1.2, (b, q, heads, len(shapes), p, 2))
+    loc[:, ::7, ..., 0] = -3.0
+    w = rng.uniform(size=(b, q, heads, len(shapes), p))
+    g = _t(rng.standard_normal((b, q, heads * dim)), dev)
+    return shapes, value, _t(loc, dev), _t(w, dev), g
+
+
+def _check_msda_backward(got, want, dtype):
+    dv, dl, dw = got
+    assert dv.dtype == dtype
+    # f32 atomic sums in another order; the kernel rounds dvalue of a bf16
+    # value to bf16 (2^-9 relative)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    assert _rel_err(dv, want[0]) <= tol
+    assert _rel_err(dl, want[1]) <= 1e-4
+    assert _rel_err(dw, want[2]) <= 1e-4
+
+
+@pytest.mark.parametrize('case', ['tsa', 'sca'])
+@pytest.mark.parametrize('dim', [8, 16, 32, 20])
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_msda_backward_kernel_paths_match_plain(dev, case, dim, dtype):
+    """K5's vector kernel (dims 8, 16, 32: 1, 2 or 4 lanes a row) and its
+    scalar one (dim 20, and a value off a 16-byte boundary) against autograd
+    of the plain version."""
+    rng = np.random.default_rng(15)
+    shapes, value, loc, w, g = _msda_inputs(rng, case, dim, dtype, dev)
+    shifted = torch.empty(value.numel() + 1, dtype=dtype, device=dev)[1:]
+    shifted = shifted.view(value.shape).copy_(value)
+    assert shifted.data_ptr() % 16
+    want = _plain_grads(
+        lambda v, lo, aw: msda.msdeform_attn_plain(v, shapes, lo, aw),
+        (value, loc, w), g)
+    before = msda.BACKWARD.launches
+    for v in (value, shifted):
+        got = msda.msda_backward_cuda(v, shapes, loc, w, g)
+        torch.cuda.synchronize()
+        _check_msda_backward(got, want, dtype)
+        # every 7th query's samples are off the map: no gradient
+        assert not bool(got[1].reshape(
+            value.shape[0], -1, *loc.shape[2:])[:, ::7].any())
+    assert msda.BACKWARD.launches == before + 2
+
+
+@pytest.mark.parametrize('case', ['tsa', 'sca'])
+@pytest.mark.parametrize('dim', [48, 64])
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_msda_wide_heads_match_plain(dev, case, dim, dtype):
+    """Head dims above 32 through ``msdeform_attn`` on the card (K1 forward,
+    K5 backward through autograd): dim 64 takes the vector kernels (K1: 8
+    lanes a bf16 row, 16 an f32 one; K5: 8 in both), dim 48 (6 or 12
+    lanes, not a power of two) the scalar ones; both against the plain
+    version and its autograd."""
+    rng = np.random.default_rng(16)
+    shapes, value, loc, w, g = _msda_inputs(rng, case, dim, dtype, dev)
+    want = msda.msdeform_attn_plain(value, shapes, loc, w)
+    want_grads = _plain_grads(
+        lambda v, lo, aw: msda.msdeform_attn_plain(v, shapes, lo, aw),
+        (value, loc, w), g)
+    leaves = [x.clone().requires_grad_() for x in (value, loc, w)]
+    counts = (msda.KERNEL.launches, msda.BACKWARD.launches)
+    got = msda.msdeform_attn(leaves[0], shapes, leaves[1], leaves[2])
+    got.backward(g)
+    torch.cuda.synchronize()
+    assert (msda.KERNEL.launches, msda.BACKWARD.launches) == (
+        counts[0] + 1, counts[1] + 1)
+    assert got.shape == want.shape
+    # f32 sums of <= 32 samples x 4 corners in another order
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5 + 1e-4 * want.abs().max().item(), err
+    _check_msda_backward([x.grad for x in leaves], want_grads, dtype)
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_msda_backward_kernel_shared_corners(dev, dtype):
+    """Every sample of every query and head in one 3x3-pixel patch of each
+    level: a block's atomic updates pile onto the same few value rows."""
+    rng = np.random.default_rng(17)
+    shapes, b, q, heads, dim, p = [(20, 30), (10, 15)], 2, 600, 8, 32, 8
+    v_len = sum(h * w for h, w in shapes)
+    value = _t(rng.standard_normal((b, v_len, heads, dim)), dev, dtype)
+    loc = np.empty((b, q, heads, len(shapes), p, 2))
+    for lvl, (h, w_) in enumerate(shapes):
+        loc[..., lvl, :, 0] = rng.uniform(5.0, 8.0, loc.shape[:3] + (p,)) / w_
+        loc[..., lvl, :, 1] = rng.uniform(4.0, 7.0, loc.shape[:3] + (p,)) / h
+    loc = _t(loc, dev)
+    w = _t(rng.uniform(size=(b, q, heads, len(shapes), p)), dev)
+    g = _t(rng.standard_normal((b, q, heads * dim)), dev)
+    want = _plain_grads(
+        lambda v, lo, aw: msda.msdeform_attn_plain(v, shapes, lo, aw),
+        (value, loc, w), g)
+    got = msda.msda_backward_cuda(value, shapes, loc, w, g)
+    torch.cuda.synchronize()
+    # sample points in 3 x 3 pixels have their corners in 5 x 5 rows: at
+    # most 25 rows of each (image, head, level) are touched
+    touched = (want[0] != 0).any(-1).sum().item()
+    assert touched <= b * heads * len(shapes) * 25
+    _check_msda_backward(got, want, dtype)
 
 
 @pytest.mark.parametrize('act', ['sigmoid', 'exp'])

@@ -111,10 +111,12 @@ def test_plain_matches_fused16_kernel_bf16(levels):
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
 
 
-def test_plain_matches_xla_small_head_dim():
-    """Head dims below 32 (the small configs) against the XLA path."""
+@pytest.mark.parametrize('dim', [4, 64])
+def test_plain_matches_xla_small_head_dim(dim):
+    """Head dims other than 32 against the XLA path: 4 (the small configs)
+    and 64 (a width K1 and K5 take on the card)."""
     shapes = LEVELS['4levels']
-    value, loc, w = _inputs(shapes, seed=3, dim=4)
+    value, loc, w = _inputs(shapes, seed=3, dim=dim)
     want = np.asarray(jax.jit(
         lambda v, lo, aw: msdeform_attn(v, shapes, lo, aw, impl='plain'))(
             jnp.asarray(value), jnp.asarray(loc), jnp.asarray(w)))

@@ -22,6 +22,10 @@
 // images of a full window (58x100, C = 256) it writes 1.6 GB of taps and
 // reads 178 MB of input (each pixel row is read by up to 36 taps, mostly
 // from L2), so it is bound by bytes.
+//
+// A C that is not a multiple of 4, or an x that does not start on a 16-byte
+// boundary, takes a scalar kernel with the same arithmetic, one thread per
+// (image, pixel, tap, channel), as K10 does (csrc/dcn_gather16.cu).
 
 #include <cuda_runtime.h>
 
@@ -80,6 +84,41 @@ dcn_gather_kernel(const float* __restrict__ x, const float* __restrict__ sx,
   }
 }
 
+// One thread per (image, pixel, tap, channel): any C, any alignment.
+__global__ void __launch_bounds__(WARPS * 32)
+dcn_gather_scalar_kernel(const float* __restrict__ x,
+                         const float* __restrict__ sx,
+                         const float* __restrict__ sy,
+                         const float* __restrict__ mask,
+                         float* __restrict__ out, int H, int W, int C, int Q,
+                         long long n) {
+  const long long t = (long long)blockIdx.x * (WARPS * 32) + threadIdx.x;
+  if (t >= n) return;
+  const long long item = t / C;
+  const int ch = (int)(t - item * C);
+  const long long b = item / ((long long)Q * TAPS);
+  const float px = __ldg(sx + item);
+  const float py = __ldg(sy + item);
+  const float x0f = floorf(px);
+  const float y0f = floorf(py);
+  const int ix0 = (int)x0f;
+  const int iy0 = (int)y0f;
+  const float wx1 = __fsub_rn(px, x0f);
+  const float wy1 = __fsub_rn(py, y0f);
+  const float wx[2] = {__fsub_rn(1.f, wx1), wx1};
+  const float wy[2] = {__fsub_rn(1.f, wy1), wy1};
+  float acc = 0.f;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int iy = iy0 + (c >> 1), ix = ix0 + (c & 1);
+    if (iy >= 0 && iy < H && ix >= 0 && ix < W) {
+      const float v = __ldg(x + ((b * H + iy) * W + ix) * C + ch);
+      acc = __fadd_rn(acc, __fmul_rn(v, __fmul_rn(wy[c >> 1], wx[c & 1])));
+    }
+  }
+  out[t] = __fmul_rn(acc, __ldg(mask + item));
+}
+
 }  // namespace
 
 extern "C" int dcn_sample_forward(const void* x, const void* sx,
@@ -87,11 +126,21 @@ extern "C" int dcn_sample_forward(const void* x, const void* sx,
                                   int B, int H, int W, int C, int Q,
                                   void* stream) {
   const long long items = (long long)B * Q * TAPS;
-  if (items == 0) return (int)cudaGetLastError();
-  const long long blocks = (items + WARPS - 1) / WARPS;
-  dcn_gather_kernel<<<(unsigned)blocks, WARPS * 32, 0,
-                      (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)sx, (const float*)sy,
-      (const float*)mask, (float*)out, H, W, C, Q, items);
+  if (items == 0 || C == 0) return (int)cudaGetLastError();
+  if (C % 4 == 0 && (reinterpret_cast<size_t>(x) & 15) == 0 &&
+      (reinterpret_cast<size_t>(out) & 15) == 0) {
+    const long long blocks = (items + WARPS - 1) / WARPS;
+    dcn_gather_kernel<<<(unsigned)blocks, WARPS * 32, 0,
+                        (cudaStream_t)stream>>>(
+        (const float*)x, (const float*)sx, (const float*)sy,
+        (const float*)mask, (float*)out, H, W, C, Q, items);
+  } else {
+    const long long n = items * C;
+    const long long blocks = (n + WARPS * 32 - 1) / (WARPS * 32);
+    dcn_gather_scalar_kernel<<<(unsigned)blocks, WARPS * 32, 0,
+                               (cudaStream_t)stream>>>(
+        (const float*)x, (const float*)sx, (const float*)sy,
+        (const float*)mask, (float*)out, H, W, C, Q, n);
+  }
   return (int)cudaGetLastError();
 }

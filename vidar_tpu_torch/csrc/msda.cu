@@ -37,9 +37,11 @@
 // of the top-left corner); only the order of the f32 sum over samples
 // changes. The grid stays camera-major (image slowest, then query, then
 // head), so one camera's value maps (15.8 MB in bf16, 31.6 MB in f32 at SCA)
-// stay in the 50 MB L2 while its queries run. A dim whose rows do not split
-// into 1, 2, 4 or 8 chunks of 16 bytes, or a value off a 16-byte boundary,
-// runs the first design's kernel, with the same arithmetic.
+// stay in the 50 MB L2 while its queries run. A row of 1 to 32 chunks of
+// 16 bytes (a power of two; up to dim 256 in bf16, 128 in f32) takes the
+// vector kernel. Any other dim, or a value off a 16-byte boundary, runs the
+// first design's kernel, with the same arithmetic, its lanes over a
+// 32-channel slice of the row at a time.
 //
 // Measured (chip_smoke.py phases 3 and 6, CUDA events, NVIDIA H100 80GB
 // HBM3 at 700 W, against the first design in the same call): bf16 SCA 0.83
@@ -191,8 +193,9 @@ msda_forward_vec_kernel(const T* __restrict__ value,
   }
 }
 
-// Any dim <= 32: one warp per (batch, query, head), one lane per channel,
-// the samples walked one at a time.
+// Any dim: one warp per (batch, query, head), one lane per channel of a
+// 32-channel slice of the head's row, the slices taken in turn and the
+// samples walked one at a time.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 msda_forward_scalar_kernel(const T* __restrict__ value,
@@ -213,60 +216,63 @@ msda_forward_scalar_kernel(const T* __restrict__ value,
   const float* loc_w = loc + warp * LP * 2;
   const float* aw_w = weights + warp * LP;
   const long long vstride = (long long)heads * dim;
-  const T* vbase = value + b * V * vstride + (long long)head * dim;
 
-  float acc = 0.f;
-  for (int s0 = 0; s0 < LP; s0 += 32) {
-    const int s = s0 + lane;
-    float lx = 0.f, ly = 0.f, la = 0.f;
-    if (s < LP) {
-      lx = loc_w[2 * s];
-      ly = loc_w[2 * s + 1];
-      la = aw_w[s];
-    }
-    const int n = min(32, LP - s0);
-    for (int j = 0; j < n; ++j) {
-      const float locx = __shfl_sync(0xffffffffu, lx, j);
-      const float locy = __shfl_sync(0xffffffffu, ly, j);
-      const float aw = __shfl_sync(0xffffffffu, la, j);
-      const int l = (s0 + j) / P;
-      const int h = __ldg(shapes + 2 * l);
-      const int w = __ldg(shapes + 2 * l + 1);
-      const T* lv = vbase + (long long)__ldg(level_start + l) * vstride;
-      const float x = __fsub_rn(__fmul_rn(locx, (float)w), 0.5f);
-      const float y = __fsub_rn(__fmul_rn(locy, (float)h), 0.5f);
-      const float x0f = floorf(x);
-      const float y0f = floorf(y);
-      const int ix0 = (int)x0f;
-      const int iy0 = (int)y0f;
-      if (lane >= dim || iy0 < -1 || iy0 > h - 1 || ix0 < -1 ||
-          ix0 > w - 1) {
-        continue;
+  for (int c0 = 0; c0 < dim; c0 += 32) {
+    const int ch = c0 + lane;
+    const T* vbase = value + b * V * vstride + (long long)head * dim + ch;
+    float acc = 0.f;
+    for (int s0 = 0; s0 < LP; s0 += 32) {
+      const int s = s0 + lane;
+      float lx = 0.f, ly = 0.f, la = 0.f;
+      if (s < LP) {
+        lx = loc_w[2 * s];
+        ly = loc_w[2 * s + 1];
+        la = aw_w[s];
       }
-      const float wx1 = __fsub_rn(x, x0f);
-      const float wy1 = __fsub_rn(y, y0f);
-      const float wx0 = __fsub_rn(1.f, wx1);
-      const float wy0 = __fsub_rn(1.f, wy1);
-      const bool y0ok = iy0 >= 0, y1ok = iy0 + 1 <= h - 1;
-      const bool x0ok = ix0 >= 0, x1ok = ix0 + 1 <= w - 1;
-      float v = 0.f;
-      if (y0ok && x0ok)
-        v = __fadd_rn(v, __fmul_rn(__fmul_rn(wy0, wx0),
-              to_f32(lv[(long long)(iy0 * w + ix0) * vstride + lane])));
-      if (y0ok && x1ok)
-        v = __fadd_rn(v, __fmul_rn(__fmul_rn(wy0, wx1),
-              to_f32(lv[(long long)(iy0 * w + ix0 + 1) * vstride + lane])));
-      if (y1ok && x0ok)
-        v = __fadd_rn(v, __fmul_rn(__fmul_rn(wy1, wx0),
-              to_f32(lv[(long long)((iy0 + 1) * w + ix0) * vstride + lane])));
-      if (y1ok && x1ok)
-        v = __fadd_rn(v, __fmul_rn(__fmul_rn(wy1, wx1),
-              to_f32(lv[(long long)((iy0 + 1) * w + ix0 + 1) * vstride +
-                        lane])));
-      acc = __fadd_rn(acc, __fmul_rn(aw, v));
+      const int n = min(32, LP - s0);
+      for (int j = 0; j < n; ++j) {
+        const float locx = __shfl_sync(0xffffffffu, lx, j);
+        const float locy = __shfl_sync(0xffffffffu, ly, j);
+        const float aw = __shfl_sync(0xffffffffu, la, j);
+        const int l = (s0 + j) / P;
+        const int h = __ldg(shapes + 2 * l);
+        const int w = __ldg(shapes + 2 * l + 1);
+        const T* lv = vbase + (long long)__ldg(level_start + l) * vstride;
+        const float x = __fsub_rn(__fmul_rn(locx, (float)w), 0.5f);
+        const float y = __fsub_rn(__fmul_rn(locy, (float)h), 0.5f);
+        const float x0f = floorf(x);
+        const float y0f = floorf(y);
+        const int ix0 = (int)x0f;
+        const int iy0 = (int)y0f;
+        if (ch >= dim || iy0 < -1 || iy0 > h - 1 || ix0 < -1 ||
+            ix0 > w - 1) {
+          continue;
+        }
+        const float wx1 = __fsub_rn(x, x0f);
+        const float wy1 = __fsub_rn(y, y0f);
+        const float wx0 = __fsub_rn(1.f, wx1);
+        const float wy0 = __fsub_rn(1.f, wy1);
+        const bool y0ok = iy0 >= 0, y1ok = iy0 + 1 <= h - 1;
+        const bool x0ok = ix0 >= 0, x1ok = ix0 + 1 <= w - 1;
+        float v = 0.f;
+        if (y0ok && x0ok)
+          v = __fadd_rn(v, __fmul_rn(__fmul_rn(wy0, wx0),
+                to_f32(lv[(long long)(iy0 * w + ix0) * vstride])));
+        if (y0ok && x1ok)
+          v = __fadd_rn(v, __fmul_rn(__fmul_rn(wy0, wx1),
+                to_f32(lv[(long long)(iy0 * w + ix0 + 1) * vstride])));
+        if (y1ok && x0ok)
+          v = __fadd_rn(v, __fmul_rn(__fmul_rn(wy1, wx0),
+                to_f32(lv[(long long)((iy0 + 1) * w + ix0) * vstride])));
+        if (y1ok && x1ok)
+          v = __fadd_rn(v, __fmul_rn(__fmul_rn(wy1, wx1),
+                to_f32(lv[(long long)((iy0 + 1) * w + ix0 + 1) *
+                          vstride])));
+        acc = __fadd_rn(acc, __fmul_rn(aw, v));
+      }
     }
+    if (ch < dim) out[bq * vstride + (long long)head * dim + ch] = acc;
   }
-  if (lane < dim) out[bq * vstride + (long long)head * dim + lane] = acc;
 }
 
 template <typename T>
@@ -277,8 +283,7 @@ cudaError_t launch(const void* value, const void* shapes,
   const long long total = (long long)B * Q * heads;
   constexpr int CPL = Chunk<T>::CPL;
   const int G = dim / CPL;
-  const bool vec = dim % CPL == 0 && (G == 1 || G == 2 || G == 4 ||
-                                      G == 8) &&
+  const bool vec = dim % CPL == 0 && G <= 32 && (G & (G - 1)) == 0 &&
                    (reinterpret_cast<size_t>(value) & 15) == 0 &&
                    (reinterpret_cast<size_t>(out) & 15) == 0 &&
                    (reinterpret_cast<size_t>(loc) & 7) == 0;

@@ -247,14 +247,22 @@ class _DCNConv(torch.autograd.Function):
         return dcn_conv_backward(*ctx.saved_tensors, g)
 
 
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous, copied into a fresh tensor if it starts off a 16-byte
+    boundary (a view with an odd storage offset)."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
 def dcn_conv(x: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
              mask: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """Fused modulated deformable conv -> [B, Q, CO] f32: K2 for CUDA
     tensors, the plain version for CPU tensors; ``dcn_conv_backward`` for
-    the gradient on both."""
-    return _DCNConv.apply(x.contiguous(), sx.float().contiguous(),
+    the gradient on both. K2 reads x and the weight in 16-byte chunks, so a
+    view of either off a 16-byte boundary is copied first."""
+    return _DCNConv.apply(_aligned16(x), sx.float().contiguous(),
                           sy.float().contiguous(), mask.float().contiguous(),
-                          weight.contiguous())
+                          _aligned16(weight))
 
 
 def dcn_sample_plain(x: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
@@ -279,9 +287,9 @@ def dcn_sample_plain(x: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
 
 def dcn_sample_cuda(x: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
                     mask: torch.Tensor) -> torch.Tensor:
-    """Launch K9. x [B, H, W, C] f32 (C % 4 == 0, 16-byte aligned: the
-    kernel reads it as float4), sx/sy/mask [B, Q, 9] f32, all contiguous on
-    one CUDA device -> [B, Q, 9, C] f32."""
+    """Launch K9. x [B, H, W, C] f32 (any C; a C % 4 == 0 on a 16-byte
+    boundary is read as float4, any other by a scalar kernel), sx/sy/mask
+    [B, Q, 9] f32, all contiguous on one CUDA device -> [B, Q, 9, C] f32."""
     dev = x.device
     if not (x.is_cuda and sx.device == sy.device == mask.device == dev):
         raise ValueError('dcn_sample_forward: all inputs must be on one CUDA '
@@ -294,15 +302,11 @@ def dcn_sample_cuda(x: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
     b, h, w, c = x.shape
     _, q, s = sx.shape
     if (s != TAPS or sx.shape[0] != b or sy.shape != sx.shape or
-            mask.shape != sx.shape or c % 4):
+            mask.shape != sx.shape):
         raise ValueError(f'dcn_sample_forward: shapes x {tuple(x.shape)}, '
                          f'taps {tuple(sx.shape)}')
     if not all(t.is_contiguous() for t in (x, sx, sy, mask)):
         raise ValueError('dcn_sample_forward: inputs must be contiguous')
-    if x.data_ptr() % 16:
-        raise ValueError('dcn_sample_forward: x must start on a 16-byte '
-                         'boundary (its storage offset a multiple of 4 '
-                         'floats)')
     out = torch.empty(b, q, s, c, dtype=torch.float32, device=dev)
     lib = load_library()
     with torch.cuda.device(dev):

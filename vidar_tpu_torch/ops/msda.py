@@ -92,10 +92,10 @@ def _check_inputs(name, value, spatial_shapes, loc, weights):
         raise TypeError(f'{name}: loc and weights must be float32')
     if value.dim() != 4 or loc.dim() != 6 or weights.dim() != 5:
         raise ValueError(f'{name}: bad ranks')
-    b, v_len, heads, dim = value.shape
+    b, v_len, heads, _ = value.shape
     _, q, _, num_levels, p, _ = loc.shape
     if (loc.shape != (b, q, heads, num_levels, p, 2) or
-            weights.shape != loc.shape[:5] or dim > 32 or
+            weights.shape != loc.shape[:5] or
             len(spatial_shapes) != num_levels or
             sum(h * w for h, w in spatial_shapes) != v_len):
         raise ValueError(
@@ -111,7 +111,7 @@ def msda_forward_cuda(value: torch.Tensor,
                       spatial_shapes: Sequence[Tuple[int, int]],
                       loc: torch.Tensor, weights: torch.Tensor
                       ) -> torch.Tensor:
-    """Launch K1. value [B, V, heads, dim<=32] bf16 or f32, loc
+    """Launch K1. value [B, V, heads, dim] bf16 or f32 (any dim), loc
     [B, Q, heads, L, P, 2] f32, weights [B, Q, heads, L, P] f32, all
     contiguous on one CUDA device -> [B, Q, heads*dim] f32."""
     _check_inputs('msda_forward', value, spatial_shapes, loc, weights)

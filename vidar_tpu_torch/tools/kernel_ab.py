@@ -1,22 +1,31 @@
-"""Time K1 and K2 of this checkout against another checkout's, on one GPU.
+"""Time K1, K2, K4 and K5 of this checkout against other checkouts', on one
+GPU.
 
-    python -m vidar_tpu_torch.tools.kernel_ab --other PATH [--reps N]
+    python -m vidar_tpu_torch.tools.kernel_ab --other PATH [--other PATH ...]
+        [--kernels K1 K2 K4 K5] [--reps N]
 
-PATH is the root of another checkout of the repository, such as a git
+Each PATH is the root of another checkout of the repository, such as a git
 archive of the parent commit. Its kernels are built by its own
 ``ops/_build.py`` in a subprocess, and its library is loaded beside this
 checkout's. Both are called through their C entries (``msda_forward``,
-``dcn_conv_forward``, whose signatures both checkouts share) on the same
-inputs, in turns (other, this, this, other): CUDA events, the mean of
-``--reps`` launches after a warm-up.
+``dcn_conv_forward``, ``ray_aggregate_forward``, ``msda_backward``, whose
+signatures the checkouts share) on the same inputs, in turns for each other
+checkout (other, this, this, other): CUDA events, the mean of ``--reps``
+launches after a warm-up. K5's value gradient is zeroed before the launch
+whose output is compared, not before the timed ones (its atomics then add
+onto the previous sums, at the same cost).
 
-The inputs are the first of each case that the bf16 forecast gives K1 and
-K2: ``vidar_base`` at ``chip_smoke.py`` phase 2's shapes and weights. K1 is
-timed at TSA, SCA and the decoder, and at SCA on f32 values. K2 is timed at
-stages 3 and 4 (30 images) and on the first 1 and 24 images of those
-inputs, the shapes of the pre-training step's camera-sequential and history
-calls. Prints the card and one JSON line: per case, both times in ms and
-the largest difference between the two outputs.
+The inputs are the first of each case that the main paths give the kernels,
+at ``chip_smoke.py``'s shapes and weights:
+- the bf16 forecast of ``vidar_base`` (phase 2): K1 at TSA, SCA and the
+  decoder, and at SCA on f32 values; K2 at stages 3 and 4 (30 images) and on
+  the first 1 and 24 images of those inputs, the shapes of the pre-training
+  step's camera-sequential and history calls; K4 on the fused map;
+- the bf16 pre-training step (phase 5): K5 at TSA, SCA and the decoder;
+- the f32 fine-tune step of ``vidar_finetune_1_8_nusc_3future`` (phase 7):
+  K5 at its TSA, SCA and detection decoder, K4 on its f32 fused map.
+Prints the card and one JSON line: per case and other checkout, both times
+in ms and the largest difference between the two outputs (one per output).
 """
 
 from __future__ import annotations
@@ -30,7 +39,13 @@ import sys
 import numpy as np
 import torch
 
-from ..ops import _build, dcn, msda
+from ..ops import _build, dcn, latent_render, msda
+
+KERNELS = ('K1', 'K2', 'K4', 'K5')
+ENTRIES = ('msda_forward', 'dcn_conv_forward', 'ray_aggregate_forward',
+           'msda_backward')
+# chip_smoke.py's shapes: bs 1, 4+1 frames, 6 cameras at 928x1600
+BATCH = dict(bs=1, queue_length=4, num_cams=6, img_h=928, img_w=1600)
 
 
 def _other_library(root: str) -> ctypes.CDLL:
@@ -43,15 +58,46 @@ def _other_library(root: str) -> ctypes.CDLL:
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    for name in ('msda_forward', 'dcn_conv_forward'):
+    for name in ENTRIES:
         fn = getattr(lib, name)
         fn.argtypes = list(_build.SIGNATURES[name])
         fn.restype = ctypes.c_int
     return lib
 
 
-def _forecast_inputs(dev):
-    """{case: kept arguments} of K1 and K2 in one bf16 forecast."""
+def _keeper(kept, case_of):
+    """A launch hook that keeps (cloned) the first arguments of each case
+    ``case_of`` names."""
+    def hook(args):
+        case = case_of(args)
+        if case is not None and case not in kept:
+            kept[case] = {k: v.clone() if torch.is_tensor(v) else v
+                          for k, v in args.items()}
+    return hook
+
+
+def _msda_case(prefix, suffix):
+    names = {(2, 1): 'tsa', (6, 4): 'sca', (1, 1): 'decoder'}
+
+    def case_of(a):
+        name = names.get((a['value'].shape[0], len(a['spatial_shapes'])))
+        return name and f'{prefix} {name}{suffix}'
+    return case_of
+
+
+def _run_hooked(hooks, fn):
+    for counter, hook in hooks.items():
+        counter.on_launch = hook
+    try:
+        fn()
+    finally:
+        for counter in hooks:
+            counter.on_launch = None
+    torch.cuda.synchronize()
+
+
+def _forecast_inputs(dev, kept, kernels):
+    """K1, K2 and K4 cases of one bf16 forecast (chip_smoke.py phase 2)."""
     from ..configs import vidar_base
     from ..data import make_synthetic_batch
     from ..evals.forecast_runner import ForecastRunner
@@ -60,55 +106,99 @@ def _forecast_inputs(dev):
     cfg['test_future_frame_num'] = 6
     model = ViDAR(**cfg, dtype=torch.bfloat16, device=dev).eval()
     model.randomize_(torch.Generator(device=dev).manual_seed(0), 0.02)
-    batch = make_synthetic_batch(np.random.default_rng(0), bs=1,
-                                 queue_length=4, future_length=6, num_cams=6,
-                                 img_h=928, img_w=1600, max_points=32768,
-                                 device=dev)
-    kept = {}
-
-    def keeper(case_of):
-        def hook(args):
-            case = case_of(args)
-            if case is not None and case not in kept:
-                kept[case] = {k: v.clone() if torch.is_tensor(v) else v
-                              for k, v in args.items()}
-        return hook
-
-    msda.KERNEL.on_launch = keeper(lambda a: {
-        (2, 1): 'K1 tsa', (6, 4): 'K1 sca', (1, 1): 'K1 decoder'}.get(
-            (a['value'].shape[0], len(a['spatial_shapes']))))
-    dcn.KERNEL.on_launch = keeper(lambda a: {
-        256: 'K2 stage3', 512: 'K2 stage4'}.get(a['x'].shape[-1]))
-    try:
-        ForecastRunner(model, (928, 1600), num_future=6, device=dev)(batch)
-    finally:
-        msda.KERNEL.on_launch = dcn.KERNEL.on_launch = None
-    torch.cuda.synchronize()
-    kept['K1 sca,float32'] = dict(kept['K1 sca'],
-                                  value=kept['K1 sca']['value'].float())
+    batch = make_synthetic_batch(np.random.default_rng(0), future_length=6,
+                                 max_points=32768, device=dev, **BATCH)
+    hooks = {
+        msda.KERNEL: _keeper(kept, _msda_case('K1', '')),
+        dcn.KERNEL: _keeper(kept, lambda a: {
+            256: 'K2 stage3', 512: 'K2 stage4'}.get(a['x'].shape[-1])),
+        latent_render.AGGREGATE: _keeper(kept,
+                                         lambda a: 'K4 forecast,bf16')}
+    _run_hooked(hooks, lambda: ForecastRunner(
+        model, (928, 1600), num_future=6, device=dev)(batch))
+    if 'K1' in kernels:
+        kept['K1 sca,float32'] = dict(kept['K1 sca'],
+                                      value=kept['K1 sca']['value'].float())
     for stage in ('stage3', 'stage4'):
         a = kept[f'K2 {stage}']
         for n in (1, 24):
             kept[f'K2 {stage},b{n}'] = {
                 k: v[:n].contiguous() if k in ('x', 'sx', 'sy', 'mask') else v
                 for k, v in a.items()}
-    return kept
+
+
+def _pretrain_inputs(dev, kept):
+    """K5 cases of one bf16 pre-training step (chip_smoke.py phase 5)."""
+    from ..configs import vidar_base
+    from ..data import make_synthetic_batch
+    from ..models import ViDAR
+    from ..train import TrainStep, make_optimizer
+    model = ViDAR(**vidar_base(), dtype=torch.bfloat16, device=dev)
+    model.randomize_(torch.Generator(device=dev).manual_seed(2), 0.02)
+    batch = make_synthetic_batch(np.random.default_rng(0), future_length=3,
+                                 max_points=32768, device=dev, **BATCH)
+    step = TrainStep(model, make_optimizer(model, device=dev),
+                     generator=torch.Generator(device=dev).manual_seed(3),
+                     device=dev)
+    _run_hooked({msda.BACKWARD: _keeper(kept, _msda_case('K5', ',bf16'))},
+                lambda: step(batch))
+
+
+def _finetune_inputs(dev, kept):
+    """K5 and K4 cases of one f32 fine-tune step (chip_smoke.py phase 7)."""
+    from ..configs import vidar_finetune_1_8_nusc_3future
+    from ..data import make_synthetic_det_batch
+    from ..models import BEVFormer
+    from ..train import DetTrainStep, make_optimizer
+    det = BEVFormer(**vidar_finetune_1_8_nusc_3future(), device=dev)
+    det.randomize_(torch.Generator(device=dev).manual_seed(4), 0.02)
+    batch = make_synthetic_det_batch(np.random.default_rng(0), max_points=64,
+                                     max_gt=128, num_gt=40, device=dev,
+                                     **BATCH)
+    step = DetTrainStep(det, make_optimizer(det, device=dev),
+                        generator=torch.Generator(device=dev).manual_seed(6),
+                        device=dev)
+    _run_hooked({msda.BACKWARD: _keeper(kept, _msda_case('K5', ',f32 ft')),
+                 latent_render.AGGREGATE: _keeper(
+                     kept, lambda a: 'K4 finetune,f32')},
+                lambda: step(batch))
 
 
 def _launcher(lib, case, a, dev):
-    """-> (launch function, output tensor) for one kept case."""
+    """-> (launch function, reset function, output tensors) for one kept
+    case."""
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if case.startswith('K1'):
+    if case.startswith(('K1', 'K5')):
         v, loc, w = a['value'], a['loc'], a['weights']
         b, v_len, heads, dim = v.shape
         _, q, _, levels, p, _ = loc.shape
         shapes, starts = msda._tables(a['spatial_shapes'], dev)
-        out = torch.empty(b, q, heads * dim, device=dev)
-        args = (v.data_ptr(), int(v.dtype == torch.bfloat16),
+        head = (v.data_ptr(), int(v.dtype == torch.bfloat16),
                 shapes.data_ptr(), starts.data_ptr(), loc.data_ptr(),
-                w.data_ptr(), out.data_ptr(), b, v_len, q, heads, dim, levels,
-                p, stream)
-        return (lambda: _build.check(lib.msda_forward(*args), case)), out
+                w.data_ptr())
+        tail = (b, v_len, q, heads, dim, levels, p, stream)
+        if case.startswith('K1'):
+            out = torch.empty(b, q, heads * dim, device=dev)
+            args = head + (out.data_ptr(),) + tail
+            return (lambda: _build.check(lib.msda_forward(*args), case),
+                    lambda: None, [out])
+        outs = [torch.zeros(v.shape, device=dev), torch.empty_like(loc),
+                torch.empty_like(w)]
+        args = head + (a['dout'].data_ptr(),) + tuple(
+            t.data_ptr() for t in outs) + tail
+        return (lambda: _build.check(lib.msda_backward(*args), case),
+                outs[0].zero_, outs)
+    if case.startswith('K4'):
+        fm = a['fused_map']
+        b, h, w_, ct = fm.shape
+        n, g = a['grids'].shape[0], a['steps'].shape[0]
+        out = torch.empty(b, n, a['c_r'], device=dev)
+        args = (fm.data_ptr(), int(fm.dtype == torch.bfloat16),
+                a['grids'].data_ptr(), a['radial_norm'].data_ptr(),
+                a['steps'].data_ptr(), out.data_ptr(), b, h, w_, ct,
+                a['c_r'], a['zdim'], n, g, float(a['eps']), stream)
+        return (lambda: _build.check(lib.ray_aggregate_forward(*args), case),
+                lambda: None, [out])
     x, wt = a['x'], a['weight']
     b, h, w_, c = x.shape
     q, co = a['sx'].shape[1], wt.shape[1]
@@ -116,7 +206,8 @@ def _launcher(lib, case, a, dev):
     args = (x.data_ptr(), a['sx'].data_ptr(), a['sy'].data_ptr(),
             a['mask'].data_ptr(), wt.data_ptr(), out.data_ptr(), b, h, w_, c,
             q, co, stream)
-    return (lambda: _build.check(lib.dcn_conv_forward(*args), case)), out
+    return (lambda: _build.check(lib.dcn_conv_forward(*args), case),
+            lambda: None, [out])
 
 
 def _time_ms(fn, reps):
@@ -132,10 +223,19 @@ def _time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def _outputs(run, reset, outs):
+    reset()
+    run()
+    torch.cuda.synchronize()
+    return [o.clone() for o in outs]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument('--other', required=True,
-                    help='root of the other checkout')
+    ap.add_argument('--other', required=True, action='append',
+                    help='root of another checkout (repeatable)')
+    ap.add_argument('--kernels', nargs='+', choices=KERNELS,
+                    default=list(KERNELS))
     ap.add_argument('--reps', type=int, default=10)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -147,19 +247,37 @@ def main(argv=None) -> int:
         check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     dev = torch.device('cuda:0')
-    other = _other_library(args.other)
+    others = {root: _other_library(root) for root in args.other}
     this = _bind(_build.load_library())
+    kept = {}
+    if {'K1', 'K2', 'K4'} & set(args.kernels):
+        _forecast_inputs(dev, kept, args.kernels)
+    if 'K5' in args.kernels:
+        _pretrain_inputs(dev, kept)
+    if {'K4', 'K5'} & set(args.kernels):
+        _finetune_inputs(dev, kept)
+    torch.cuda.empty_cache()
     results = {}
-    for case, a in _forecast_inputs(dev).items():
-        run_other, out_other = _launcher(other, case, a, dev)
-        run_this, out_this = _launcher(this, case, a, dev)
-        t = [_time_ms(f, args.reps)
-             for f in (run_other, run_this, run_this, run_other)]
-        diff = (out_this - out_other).abs().max().item()
-        results[case] = dict(other_ms=(t[0] + t[3]) / 2,
-                             this_ms=(t[1] + t[2]) / 2, max_abs_diff=diff)
-        print(f'{case}: other {t[0]:.4f} {t[3]:.4f} ms, this {t[1]:.4f} '
-              f'{t[2]:.4f} ms, max |this - other| {diff:.3g}', flush=True)
+    for case, a in sorted(kept.items()):
+        if case.split()[0] not in args.kernels:
+            continue
+        run_this, reset_this, out_this = _launcher(this, case, a, dev)
+        want = _outputs(run_this, reset_this, out_this)
+        results[case] = {}
+        for root, lib in others.items():
+            run_other, reset_other, out_other = _launcher(lib, case, a, dev)
+            t = [_time_ms(f, args.reps)
+                 for f in (run_other, run_this, run_this, run_other)]
+            got = _outputs(run_other, reset_other, out_other)
+            diff = [(x - y).abs().max().item() for x, y in zip(want, got)]
+            results[case][root] = dict(other_ms=(t[0] + t[3]) / 2,
+                                       this_ms=(t[1] + t[2]) / 2,
+                                       max_abs_diff=diff)
+            print(f'{case} vs {root}: other {t[0]:.4f} {t[3]:.4f} ms, this '
+                  f'{t[1]:.4f} {t[2]:.4f} ms, max |this - other| '
+                  f'{" ".join(f"{d:.3g}" for d in diff)}', flush=True)
+            del got, out_other
+        del want, out_this
     print(json.dumps({'card': card, 'cases': results}))
     return 0
 
