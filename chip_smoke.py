@@ -26,7 +26,12 @@ it drives; a kernel of the path that never launched fails the run:
    inputs: error and CUDA-event times of both, and the bound: the larger of
    the bytes the function must move over 3.35 TB/s and its floating-point
    operations over the card's peak rate for their type, with the share of
-   it each kernel reaches (bound / time);
+   it each kernel reaches (bound / time); the kernel that each K3 and K9
+   case ran (its ``path`` in the JSON line: ``ray_first_hit_route``'s
+   vector or first design, ``dcn_sample_route``'s staged or scalar), and
+   K9's
+   device-only time (its launches queued behind a sleep kernel) beside the
+   wrapper-inclusive one;
 4. a second, timed forecast: seconds, samples/s, peak device memory (the
    forecast's own: the train model does not exist yet);
 5. the first (warm-up) pre-training step of ``vidar_base`` at full width
@@ -141,6 +146,28 @@ def _time_ms(fn, reps=3) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# a sleep kernel of about 5 ms (10M cycles at the H100's clocks), longer
+# than the host takes to queue the timed launches behind it
+SLEEP_CYCLES = 10_000_000
+
+
+def _device_ms(fn, reps=10) -> float:
+    """fn's device time: CUDA events around reps launches that the host
+    queued behind a sleep kernel, so the host's cost per call (checks,
+    allocation, launch) does not enter it, as it enters ``_time_ms``."""
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -698,6 +725,15 @@ def main() -> int:
         plain = run_plain().float().reshape(lib.shape)
         print(f'  grid_sample yardstick[{case}]: max abs diff from the plain '
               f'version {(lib - plain).abs().max().item():.3g}', flush=True)
+        if counter is dcn.SAMPLE:
+            # the kernel K9 ran, and its device time beside the
+            # wrapper-inclusive time of the line above
+            path = dcn.dcn_sample_route(a['x'], a['sx'].shape[1])
+            device_ms = _device_ms(run_kernel)
+            results[-1].update(path=path, device_ms=device_ms)
+            print(f'  {counter.name}[{case}]: path {path}; device-only '
+                  f'{device_ms:.4f} ms, with the wrapper '
+                  f'{results[-1]["ms"]:.4f} ms', flush=True)
         return ok
 
     oks = []
@@ -735,6 +771,10 @@ def main() -> int:
                                                      a['act']),
             lambda: latent_render.ray_first_hit_plain(a['occ'], *geo,
                                                       a['act']), n=n)
+        path = latent_render.ray_first_hit_route(a['occ'])
+        results[-1]['path'] = path
+        print(f'  {latent_render.FIRST_HIT.name}[{case}]: path {path} '
+              f'({a["occ"].dtype}, Z = {a["occ"].shape[-1]})', flush=True)
         b = kept[latent_render.AGGREGATE.name].inputs[case]
         agg = (b['fused_map'], b['grids'], b['radial_norm'], b['steps'],
                b['c_r'], b['zdim'], b['eps'])

@@ -252,6 +252,61 @@ def test_dcn_sample_kernel_rejects_misaligned_x(dev):
     assert dcn.SAMPLE.launches == before + 2
 
 
+def _dcn_sample_inputs(rng, b, h, w, q, sigma, dev):
+    """Taps of a 3x3 conv at stride 1 on an h x w map (q = h*w), displaced
+    by N(0, sigma) pixels, or, for another q, anywhere on and around the
+    map; plus exact zero-ring edges and samples wholly off the map."""
+    if q == h * w:
+        gy, gx = np.meshgrid(np.arange(h), np.arange(w), indexing='ij')
+        k = np.arange(3) - 1.0
+        ky, kx = np.meshgrid(k, k, indexing='ij')
+        sy = (gy.reshape(1, q, 1) + ky.reshape(1, 1, 9) +
+              rng.normal(0, sigma, (b, q, 9)))
+        sx = (gx.reshape(1, q, 1) + kx.reshape(1, 1, 9) +
+              rng.normal(0, sigma, (b, q, 9)))
+    else:
+        sy = rng.uniform(-2, h + 1, (b, q, 9))
+        sx = rng.uniform(-2, w + 1, (b, q, 9))
+    sx[0, 0] = [-1.0, -0.5, -0.25, 0.0, w - 1.0, w - 0.75, w - 0.5, w, -3.0]
+    sy[0, 0] = [0.5, h - 0.5, -0.5, h - 1.0, -1.0, 2.0, h + 0.25, 1.0, -2.0]
+    sx[b - 1, q - 1] = w + 5.0
+    mask = _t(rng.uniform(size=(b, q, 9)), dev)
+    return _t(sx, dev), _t(sy, dev), mask
+
+
+@pytest.mark.parametrize('sigma', [0.5, 4.0])
+@pytest.mark.parametrize('layout', ['conv', 'other'])
+@pytest.mark.parametrize('c', [256, 512, 6, 66])
+def test_dcn_sample_kernel_routes_equal_plain(dev, c, layout, sigma):
+    """K9 on both kernels, at B = 2 on an 11 x 37 map, which the 2 x 16
+    tiles do not divide: a conv's Q = H*W taps displaced by N(0, 0.5) px
+    keep their corners inside the staged windows, by N(0, 4) px send many
+    outside them (read from x); C = 256 and 512 run the staged kernel, C =
+    6 and 66, another Q and a view of x off a 16-byte boundary the scalar
+    one. The taps equal the plain version's (the same products and sum
+    order, no FMAs): == holds, which takes -0 for 0."""
+    rng = np.random.default_rng(21)
+    b, h, w = 2, 11, 37
+    q = h * w if layout == 'conv' else 150
+    x = _t(rng.standard_normal((b, h, w, c)), dev)
+    sx, sy, mask = _dcn_sample_inputs(rng, b, h, w, q, sigma, dev)
+    shifted = torch.empty(x.numel() + 1, device=dev)[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16
+    assert dcn.dcn_sample_route(x, q) == (
+        'staged' if c % 4 == 0 and layout == 'conv' else 'scalar')
+    assert dcn.dcn_sample_route(shifted, q) == 'scalar'
+    want = dcn.dcn_sample_plain(x, sx, sy, mask)
+    before = dcn.SAMPLE.launches
+    for xi in (x, shifted):
+        got = dcn.dcn_sample_cuda(xi, sx, sy, mask)
+        torch.cuda.synchronize()
+        assert bool((got == want).all()), (got - want).abs().max().item()
+        assert not bool(got[0, 0, 8].any())
+        assert not bool(got[b - 1, q - 1].any())
+    assert dcn.SAMPLE.launches == before + 2
+
+
 def test_f32_deform_conv_launches_dcn_sample(dev):
     """An f32 DeformConv2d on CUDA tensors runs K9 (and no K2); a bf16 one
     runs K2."""
@@ -442,6 +497,54 @@ def test_first_hit_kernel_matches_plain(dev, act, dtype):
     torch.cuda.synchronize()
     # outputs in [0, 1]; a product of <= 78 factors in another order plus
     # the activation's last-bit rounding
+    err = (got - want).abs().max().item()
+    assert err <= 1e-4, err
+
+
+@pytest.mark.parametrize('z', [16, 4, 5])
+@pytest.mark.parametrize('act', ['sigmoid', 'exp'])
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_first_hit_kernel_paths_match_plain(dev, dtype, act, z):
+    """K3 at the presets' geometry (200 x 200 cells, G = 256 waypoints):
+    Z = 16 and 4 run the vector kernel, Z = 5 and a map view off a 16-byte
+    boundary the first design."""
+    rng = np.random.default_rng(22)
+    h = w = 200
+    occ = _t(2.0 * rng.standard_normal((1, h, w, z)), dev, dtype)
+    shifted = torch.empty(occ.numel() + 1, dtype=dtype, device=dev)[1:]
+    shifted = shifted.view(occ.shape).copy_(occ)
+    assert shifted.data_ptr() % 16
+    assert latent_render.ray_first_hit_route(occ) == (
+        'first design' if z == 5 else 'vector')
+    assert latent_render.ray_first_hit_route(shifted) == 'first design'
+    grids, rn, steps = _geometry(h, w, 256, dev)
+    want = latent_render.ray_first_hit_plain(occ, grids, rn, steps, act)
+    before = latent_render.FIRST_HIT.launches
+    for o in (occ, shifted):
+        got = latent_render.ray_first_hit_cuda(o, grids, rn, steps, act)
+        torch.cuda.synchronize()
+        # outputs in [0, 1]; a product of <= 257 factors in another order
+        # plus the activation's last-bit rounding
+        err = (got - want).abs().max().item()
+        assert err <= 1e-4, err
+    assert latent_render.FIRST_HIT.launches == before + 2
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_first_hit_kernel_any_step_order(dev, dtype):
+    """The vector K3 stops a ray at the first batch of waypoints outside the
+    cell only when the steps ascend from zero; steps in another order (here
+    shuffled) walk every waypoint and give the plain version's result."""
+    rng = np.random.default_rng(23)
+    h = w = 60
+    occ = _t(rng.standard_normal((1, h, w, 16)), dev, dtype)
+    grids, rn, steps = _geometry(h, w, 77, dev)
+    steps = steps[torch.from_numpy(rng.permutation(77)).to(dev)]
+    assert latent_render.ray_first_hit_route(occ) == 'vector'
+    got = latent_render.ray_first_hit_cuda(occ, grids, rn, steps, 'exp')
+    want = latent_render.ray_first_hit_plain(occ, grids, rn, steps, 'exp')
+    torch.cuda.synchronize()
+    # a product of <= 78 factors in another order
     err = (got - want).abs().max().item()
     assert err <= 1e-4, err
 

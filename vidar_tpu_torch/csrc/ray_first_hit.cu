@@ -10,24 +10,65 @@
 // waypoints strictly closer to the centre than the cell, times the cell's own
 // p.
 //
-// What bounds it on the H100: neither bytes nor FLOPs in bulk. The map is
-// small (200x200x16 bf16 = 1.3 MB, within L2), but every (cell, z) walks 257
-// waypoints in sequence with 4 dependent-address loads and one transcendental
-// each: counted from the shapes, 40000 x 16 x 257 x 4 = 660M loads that hit
-// in cache. The design: one thread per (batch, cell, z) with z fastest, so
-// the threads of a warp read the 16 bins of a corner as one 32-byte (bf16)
-// segment; the geometry is recomputed in registers from the cell centre, the
-// radial direction and the step table (no [N, 257, 2] path tensor in memory),
-// and the product is carried in a register. The TPU kernel's packed corner
-// tables and column chunks (a VMEM budget) are not needed.
+// What bounds it on the H100: instruction issue. The map is small (200x200x16
+// bf16 = 1.3 MB, within L2 and largely L1) and FLOPs are few (0.013 ms at
+// the f32 peak). The first design, one thread per (batch, cell, bin) with the
+// bins fastest, walked all G waypoints in every thread and recomputed each
+// waypoint's geometry (a correctly rounded sqrt among it) once per bin, 16
+// times, for all 256 waypoints though only about 77 lie inside a cell's
+// radius on average, and read each corner 2 or 4 bytes at a time: 0.428 ms
+// bf16 and 0.436 ms f32 against a 0.0132 ms bound (chip_smoke.py, NVIDIA
+// H100 80GB HBM3, 700.00 W).
 //
-// Measured at the forecast's shape (chip_smoke.py, NVIDIA H100 80GB HBM3,
-// 700 W): 0.43 ms per call (plain PyTorch 37.9 ms).
+// The vector design takes K4's layout (csrc/ray_aggregate.cu): one warp per
+// (batch, cell). The warp walks the waypoints 32 at a time, a lane each: it
+// computes the waypoint's geometry once, with ray_common.cuh's
+// round-to-nearest intrinsics, so the strict-inside test is the plain
+// version's bit for bit, and writes the sample corner of each inside
+// waypoint into a per-warp shared-memory list (its place from a ballot).
+// Then S lanes a waypoint sample the listed ones, each lane one 16-byte
+// chunk of a corner row's Z bins (S = 2 for bf16 and 4 for f32 at Z = 16;
+// at Z = 4 one lane holds the row, 8 bytes in bf16), so no lane is idle on
+// an outside waypoint. When the steps ascend from zero (the block checks
+// them), a waypoint's length never decreases along the ray, so the warp
+// stops at the first batch with no inside waypoint. The factor 1 - p is
+// folded into a per-bin accumulator without a division per sample: for
+// sigmoid 1 - p = 1 / (1 + e^l), and the lane keeps the product of the
+// denominators; for 1 - exp(-relu) it is e^-relu(l), and the lane keeps the
+// sum of the exponents. An xor-shuffle product (sum) joins the lanes, and
+// the first S lanes take one division (exponential) per bin, multiply by
+// the cell's own p and write the Z outputs with 16-byte stores. The
+// samples use fused multiply-adds. So the outputs differ from the plain
+// version's by rounding alone (4.5e-8 at the paths' inputs).
+//
+// Measured (tools/kernel_ab.py, device time, NVIDIA H100 80GB HBM3 at
+// 700.00 W, against the first design in the same process): the forecast's
+// bf16 map 0.114 ms (0.414), the fine-tune's f32 map 0.107 ms (0.405), 8x
+// the operations bound. Timed variants (bf16 / f32): with no activation
+// 0.097 / 0.094 ms, every corner read from one line 0.102 / 0.089, without
+// the early stop 0.121 / 0.116, without fused multiply-adds 0.120 / 0.119.
+// No single part bounds it: instruction issue, spread over the geometry,
+// the samples and the activation. A first vector design with S lanes on
+// every waypoint of a batch (idle where it was outside) and the division
+// per sample ran 0.144 / 0.150 ms.
+//
+// Z = 16 and Z = 4 (the presets) with a 16-byte aligned map and output run
+// the vector kernel; any other Z or alignment the first design's kernel.
+// ray_first_hit_route names the kernel a call takes.
+
+#include <type_traits>
 
 #include "ray_common.cuh"
 
 namespace {
 
+__device__ __forceinline__ float activate(float logit, int act_exp) {
+  return act_exp ? __fsub_rn(1.f, expf(-fmaxf(logit, 0.f)))
+                 : 1.f / (1.f + expf(-logit));
+}
+
+// The first design, for any Z and alignment: one thread per (batch, cell,
+// bin), the bin fastest.
 template <typename T>
 __global__ void ray_first_hit_kernel(const T* __restrict__ occ,
                                      const float* __restrict__ grids,
@@ -54,36 +95,229 @@ __global__ void ray_first_hit_kernel(const T* __restrict__ occ,
     const float py = ray::waypoint(ry, step);
     if (!(ray::length2(px, py) < cell_len)) continue;  // factor 1
     const float logit = ray::sample(map, H, W, Z, z, px, py);
-    const float p = act_exp ? __fsub_rn(1.f, expf(-fmaxf(logit, 0.f)))
-                            : 1.f / (1.f + expf(-logit));
-    prod = __fmul_rn(prod, __fsub_rn(1.f, p));
+    prod = __fmul_rn(prod, __fsub_rn(1.f, activate(logit, act_exp)));
   }
   const float logit = ray::sample(map, H, W, Z, z, cx, cy);
-  const float p_last = act_exp ? __fsub_rn(1.f, expf(-fmaxf(logit, 0.f)))
-                               : 1.f / (1.f + expf(-logit));
-  out[idx] = __fmul_rn(prod, p_last);
+  out[idx] = __fmul_rn(prod, activate(logit, act_exp));
+}
+
+// CPL bins of T in one load: 16 bytes, or 8 (4 bf16 bins)
+template <typename T, int CPL>
+struct Chunk {
+  static constexpr int BYTES = CPL * (int)sizeof(T);
+  using Raw = typename std::conditional<BYTES == 16, uint4, uint2>::type;
+  __device__ __forceinline__ static void unpack(const Raw& r,
+                                                float (&f)[CPL]) {
+    const T* e = reinterpret_cast<const T*>(&r);
+#pragma unroll
+    for (int k = 0; k < CPL; ++k) f[k] = ray::to_f32(e[k]);
+  }
+};
+
+// A sample point's top-left corner and fractions, ray::sample's
+// arithmetic: {ix0, iy0, wx1, wy1} (the fractions' bits), ix0 = OFF_MAP for
+// a point beyond the zero ring (a zero sample).
+constexpr int OFF_MAP = -(1 << 30);
+
+__device__ __forceinline__ int4 corner_of(int H, int W, float gx, float gy) {
+  const float x =
+      __fmul_rn(__fsub_rn(__fmul_rn(__fadd_rn(gx, 1.f), (float)W), 1.f), 0.5f);
+  const float y =
+      __fmul_rn(__fsub_rn(__fmul_rn(__fadd_rn(gy, 1.f), (float)H), 1.f), 0.5f);
+  const float x0f = floorf(x);
+  const float y0f = floorf(y);
+  const int ix0 = (int)x0f;
+  const int iy0 = (int)y0f;
+  if (iy0 < -1 || iy0 > H - 1 || ix0 < -1 || ix0 > W - 1)
+    return make_int4(OFF_MAP, 0, 0, 0);
+  return make_int4(ix0, iy0, __float_as_int(__fsub_rn(x, x0f)),
+                   __float_as_int(__fsub_rn(y, y0f)));
+}
+
+// The lane's CPL bins (part `part` of each corner row) of the bilinear
+// sample at corner `cr`: the on-map corners' chunks, all read before any is
+// used, summed in ray::sample's corner order with fused multiply-adds.
+template <typename T, int ZD, int CPL>
+__device__ __forceinline__ void sample_bins(const T* __restrict__ map, int H,
+                                            int W, int part, int4 cr,
+                                            float (&v)[CPL]) {
+  using C = Chunk<T, CPL>;
+#pragma unroll
+  for (int k = 0; k < CPL; ++k) v[k] = 0.f;
+  if (cr.x == OFF_MAP) return;
+  const float wx1 = __int_as_float(cr.z), wy1 = __int_as_float(cr.w);
+  const float wx[2] = {__fsub_rn(1.f, wx1), wx1};
+  const float wy[2] = {__fsub_rn(1.f, wy1), wy1};
+  typename C::Raw raw[4];
+  bool on[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int iy = cr.y + (c >> 1), ix = cr.x + (c & 1);
+    on[c] = iy >= 0 && iy < H && ix >= 0 && ix < W;
+    if (on[c])
+      raw[c] = __ldg(reinterpret_cast<const typename C::Raw*>(
+                         map + (iy * W + ix) * ZD) + part);
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    if (!on[c]) continue;
+    const float w = __fmul_rn(wy[c >> 1], wx[c & 1]);
+    float e[CPL];
+    C::unpack(raw[c], e);
+#pragma unroll
+    for (int k = 0; k < CPL; ++k) v[k] = fmaf(e[k], w, v[k]);
+  }
+}
+
+// One warp per (batch, cell). The warp walks the waypoints 32 at a time, a
+// lane each for the geometry; the inside ones are then sampled S lanes a
+// waypoint, lane part h (of S) owning bins [h CPL, (h + 1) CPL). EXP: the
+// activation 1 - exp(-relu), else sigmoid.
+template <typename T, int ZD, bool EXP>
+__global__ void __launch_bounds__(256)
+ray_first_hit_vec_kernel(const T* __restrict__ occ,
+                         const float* __restrict__ grids,
+                         const float* __restrict__ radial,
+                         const float* __restrict__ steps,
+                         float* __restrict__ out, int B, int H, int W, int N,
+                         int G) {
+  constexpr int ROW = ZD * (int)sizeof(T);  // bytes of a cell's bins
+  constexpr int S = ROW >= 16 ? ROW / 16 : 1;
+  constexpr int CPL = ZD / S;
+  constexpr int PER = 32 / S;  // waypoints sampled per warp step
+  __shared__ int4 corners[8][32];  // a batch's inside waypoints, per warp
+  // whether the steps ascend from zero: then the waypoints' lengths never
+  // decrease along a ray (each rounded operation is monotone), and the
+  // waypoints inside the cell's radius are a prefix
+  bool ascending = true;
+  for (int k = threadIdx.x; k < G; k += blockDim.x) {
+    const float s = __ldg(steps + k);
+    ascending &= k == 0 ? s >= 0.f : __ldg(steps + k - 1) <= s;
+  }
+  const bool prefix = __syncthreads_and(ascending);
+  const long long warp =
+      (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (warp >= (long long)B * N) return;  // uniform across the warp
+  const int lane = threadIdx.x & 31;
+  const int part = lane % S;
+  const int n = (int)(warp % N);
+  const T* map = occ + (warp / N) * H * W * ZD;
+  int4* batch = corners[threadIdx.x >> 5];
+  const float rx = __ldg(radial + 2 * n), ry = __ldg(radial + 2 * n + 1);
+  const float cx = __fsub_rn(__fmul_rn(__ldg(grids + 2 * n), 2.f), 1.f);
+  const float cy = __fsub_rn(__fmul_rn(__ldg(grids + 2 * n + 1), 2.f), 1.f);
+  const float cell_len = ray::length2(cx, cy);
+  // per bin, the product of the factors 1 - p: for sigmoid 1 - p =
+  // 1 / (1 + e^l), kept as the product of the denominators; for the
+  // exponential 1 - p = e^-relu(l), kept as the sum of the exponents
+  float acc[CPL];
+#pragma unroll
+  for (int k = 0; k < CPL; ++k) acc[k] = EXP ? 0.f : 1.f;
+
+  for (int g0 = 0; g0 < G; g0 += 32) {
+    const int g = g0 + lane;
+    bool inside = false;
+    float px = 0.f, py = 0.f;
+    if (g < G) {
+      const float step = __ldg(steps + g);
+      px = ray::waypoint(rx, step);
+      py = ray::waypoint(ry, step);
+      inside = ray::length2(px, py) < cell_len;
+    }
+    const unsigned in = __ballot_sync(0xffffffffu, inside);
+    if (!in) {
+      if (prefix) break;
+      continue;
+    }
+    if (inside)  // the waypoint's place among the batch's inside ones
+      batch[__popc(in & ((1u << lane) - 1u))] = corner_of(H, W, px, py);
+    __syncwarp();
+    const int n_in = __popc(in);
+    for (int k = lane / S; k < n_in; k += PER) {
+      float logit[CPL];
+      sample_bins<T, ZD, CPL>(map, H, W, part, batch[k], logit);
+#pragma unroll
+      for (int z = 0; z < CPL; ++z)
+        acc[z] = EXP ? __fadd_rn(acc[z], fmaxf(logit[z], 0.f))
+                     : __fmul_rn(acc[z], __fadd_rn(1.f, expf(logit[z])));
+    }
+    __syncwarp();
+  }
+
+  // the lanes of each part together, then the cell's own p
+#pragma unroll
+  for (int off = S; off < 32; off <<= 1) {
+#pragma unroll
+    for (int k = 0; k < CPL; ++k) {
+      const float o = __shfl_xor_sync(0xffffffffu, acc[k], off);
+      acc[k] = EXP ? __fadd_rn(acc[k], o) : __fmul_rn(acc[k], o);
+    }
+  }
+  if (lane < S) {
+    float logit[CPL];
+    sample_bins<T, ZD, CPL>(map, H, W, part, corner_of(H, W, cx, cy), logit);
+    float t[CPL];
+#pragma unroll
+    for (int k = 0; k < CPL; ++k)
+      t[k] = __fmul_rn(EXP ? expf(-acc[k]) : 1.f / acc[k],
+                       activate(logit[k], EXP));
+    float4* o = reinterpret_cast<float4*>(out + warp * ZD + part * CPL);
+#pragma unroll
+    for (int k = 0; k < CPL; k += 4)
+      o[k / 4] = make_float4(t[k], t[k + 1], t[k + 2], t[k + 3]);
+  }
+}
+
+// 1: the vector kernel, 0: the first design
+int route(const void* occ, const void* out, int Z) {
+  return (Z == 16 || Z == 4) && (reinterpret_cast<size_t>(occ) & 15) == 0 &&
+         (reinterpret_cast<size_t>(out) & 15) == 0;
+}
+
+template <typename T>
+void launch(const void* occ, const void* grids, const void* radial,
+            const void* steps, void* out, int B, int H, int W, int Z, int N,
+            int G, int act_exp, cudaStream_t st) {
+  if (route(occ, out, Z)) {
+    const unsigned blocks = (unsigned)(((long long)B * N * 32 + 255) / 256);
+    auto kernel =
+        Z == 16 ? (act_exp ? ray_first_hit_vec_kernel<T, 16, true>
+                           : ray_first_hit_vec_kernel<T, 16, false>)
+                : (act_exp ? ray_first_hit_vec_kernel<T, 4, true>
+                           : ray_first_hit_vec_kernel<T, 4, false>);
+    kernel<<<blocks, 256, 0, st>>>(
+        (const T*)occ, (const float*)grids, (const float*)radial,
+        (const float*)steps, (float*)out, B, H, W, N, G);
+    return;
+  }
+  const long long total = (long long)B * N * Z;
+  const unsigned blocks = (unsigned)((total + 255) / 256);
+  ray_first_hit_kernel<T><<<blocks, 256, 0, st>>>(
+      (const T*)occ, (const float*)grids, (const float*)radial,
+      (const float*)steps, (float*)out, B, H, W, Z, N, G, act_exp);
 }
 
 }  // namespace
+
+// Which kernel ray_first_hit_forward runs for these arguments: 1 the vector
+// kernel, 0 the first design.
+extern "C" int ray_first_hit_route(const void* occ, const void* out, int Z) {
+  return route(occ, out, Z);
+}
 
 extern "C" int ray_first_hit_forward(const void* occ, int occ_is_bf16,
                                      const void* grids, const void* radial,
                                      const void* steps, void* out, int B,
                                      int H, int W, int Z, int N, int G,
                                      int act_exp, void* stream) {
-  const long long total = (long long)B * N * Z;
-  if (total == 0) return (int)cudaGetLastError();
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
+  if ((long long)B * N * Z == 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
   if (occ_is_bf16) {
-    ray_first_hit_kernel<__nv_bfloat16><<<blocks, threads, 0, st>>>(
-        (const __nv_bfloat16*)occ, (const float*)grids, (const float*)radial,
-        (const float*)steps, (float*)out, B, H, W, Z, N, G, act_exp);
+    launch<__nv_bfloat16>(occ, grids, radial, steps, out, B, H, W, Z, N, G,
+                          act_exp, st);
   } else {
-    ray_first_hit_kernel<float><<<blocks, threads, 0, st>>>(
-        (const float*)occ, (const float*)grids, (const float*)radial,
-        (const float*)steps, (float*)out, B, H, W, Z, N, G, act_exp);
+    launch<float>(occ, grids, radial, steps, out, B, H, W, Z, N, G, act_exp,
+                  st);
   }
   return (int)cudaGetLastError();
 }

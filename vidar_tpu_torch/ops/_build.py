@@ -18,6 +18,7 @@ buffer the wrapper zeroes; the order of those sums varies from run to run.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -46,12 +47,16 @@ SIGNATURES = {
                          _I, _I, _I, _I, _I, _I, _P),
     # x, sx, sy, mask, out, B, H, W, C, Q, stream
     'dcn_sample_forward': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, out, H, W, C, Q -> which kernel dcn_sample_forward runs
+    'dcn_sample_route': (_P, _P, _I, _I, _I, _I),
     # x (bf16), sx, sy, mask, out (bf16), B, H, W, C, Q, stream
     'dcn_sample16_forward': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # occ, occ_is_bf16, grids, radial, steps, out,
     # B, H, W, Z, N, G, act_exp, stream
     'ray_first_hit_forward': (_P, _I, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _P),
+    # occ, out, Z -> which kernel ray_first_hit_forward runs
+    'ray_first_hit_route': (_P, _P, _I),
     # fmap, fmap_is_bf16, grids, radial, steps, out,
     # B, H, W, CT, c_r, Z, N, G, eps, stream
     'ray_aggregate_forward': (_P, _I, _P, _P, _P, _P,
@@ -180,5 +185,18 @@ def check(rc: int, name: str) -> None:
 
 
 def stream_of(t) -> int:
+    """The raw handle of the current stream of CUDA tensor t's device: the
+    call PyTorch's own generated launchers use, a fraction of the host time
+    of ``torch.cuda.current_stream(dev).cuda_stream``."""
     import torch
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+def on_device(dev):
+    """``torch.cuda.device(dev)``, or nothing to enter where dev is the
+    current device already (the usual case, and a fraction of the
+    context's host time)."""
+    import torch
+    if dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)

@@ -29,7 +29,8 @@ from __future__ import annotations
 
 import torch
 
-from ._build import KernelCounter, check, load_library, stream_of
+from ._build import (KernelCounter, check, load_library, on_device,
+                     stream_of)
 from .gather import bilinear_corners
 
 KERNEL = KernelCounter(
@@ -221,7 +222,7 @@ def dcn_conv_cuda(x: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
                          'chunks)')
     out = torch.empty(b, q, co, dtype=torch.float32, device=dev)
     lib = load_library()
-    with torch.cuda.device(dev):
+    with on_device(dev):
         rc = lib.dcn_conv_forward(
             x.data_ptr(), sx.data_ptr(), sy.data_ptr(), mask.data_ptr(),
             weight.data_ptr(), out.data_ptr(), b, h, w, c, q, co,
@@ -285,11 +286,26 @@ def dcn_sample_plain(x: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
     return out
 
 
+# dcn_sample_route's codes
+SAMPLE_ROUTES = {1: 'staged', 0: 'scalar'}
+
+
+def dcn_sample_route(x: torch.Tensor, q: int) -> str:
+    """Which K9 kernel ``dcn_sample_cuda`` runs for x [B, H, W, C] and Q
+    output pixels: 'staged' (2 x 16-pixel tiles from a window of x in shared
+    memory, where Q = H*W, as in the ResNet DCN, C % 4 == 0 and x lies on a
+    16-byte boundary) or 'scalar' (any other call). The wrapper's output is
+    a fresh, aligned allocation (0 stands for its address)."""
+    _, h, w, c = x.shape
+    return SAMPLE_ROUTES[load_library().dcn_sample_route(
+        x.data_ptr(), 0, h, w, c, q)]
+
+
 def dcn_sample_cuda(x: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
                     mask: torch.Tensor) -> torch.Tensor:
-    """Launch K9. x [B, H, W, C] f32 (any C; a C % 4 == 0 on a 16-byte
-    boundary is read as float4, any other by a scalar kernel), sx/sy/mask
-    [B, Q, 9] f32, all contiguous on one CUDA device -> [B, Q, 9, C] f32."""
+    """Launch K9. x [B, H, W, C] f32 (any C and alignment: see
+    ``dcn_sample_route``), sx/sy/mask [B, Q, 9] f32, all contiguous on one
+    CUDA device -> [B, Q, 9, C] f32."""
     dev = x.device
     if not (x.is_cuda and sx.device == sy.device == mask.device == dev):
         raise ValueError('dcn_sample_forward: all inputs must be on one CUDA '
@@ -309,7 +325,7 @@ def dcn_sample_cuda(x: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
         raise ValueError('dcn_sample_forward: inputs must be contiguous')
     out = torch.empty(b, q, s, c, dtype=torch.float32, device=dev)
     lib = load_library()
-    with torch.cuda.device(dev):
+    with on_device(dev):
         rc = lib.dcn_sample_forward(
             x.data_ptr(), sx.data_ptr(), sy.data_ptr(), mask.data_ptr(),
             out.data_ptr(), b, h, w, c, q, stream_of(x))
@@ -381,7 +397,7 @@ def dcn_sample16_cuda(x: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
         raise ValueError('dcn_sample16_forward: inputs must be contiguous')
     out = torch.empty(b, q, s * c, dtype=torch.bfloat16, device=dev)
     lib = load_library()
-    with torch.cuda.device(dev):
+    with on_device(dev):
         rc = lib.dcn_sample16_forward(
             x.data_ptr(), sx.data_ptr(), sy.data_ptr(), mask.data_ptr(),
             out.data_ptr(), b, h, w, c, q, stream_of(x))

@@ -28,7 +28,8 @@ from __future__ import annotations
 
 import torch
 
-from ._build import KernelCounter, check, load_library, stream_of
+from ._build import (KernelCounter, check, load_library, on_device,
+                     stream_of)
 from .grid_sample import grid_sample_2d
 
 FIRST_HIT = KernelCounter(
@@ -131,8 +132,22 @@ def _check_geometry(name, fmap, grids, radial_norm, steps):
         raise ValueError(f'{name}: inputs must be contiguous')
 
 
+# ray_first_hit_route's codes
+FIRST_HIT_ROUTES = {1: 'vector', 0: 'first design'}
+
+
+def ray_first_hit_route(occ) -> str:
+    """Which K3 kernel ``ray_first_hit_cuda`` runs for the map occ [B, H, W,
+    Z]: 'vector' (Z = 16 or 4, the presets', on a 16-byte boundary) or
+    'first design' (any other Z or alignment). The wrapper's output is a
+    fresh, aligned allocation (0 stands for its address)."""
+    return FIRST_HIT_ROUTES[load_library().ray_first_hit_route(
+        occ.data_ptr(), 0, occ.shape[-1])]
+
+
 def ray_first_hit_cuda(occ, grids, radial_norm, steps, act: str):
-    """Launch K3 -> [B, N, Z] f32."""
+    """Launch K3 -> [B, N, Z] f32 (any Z and alignment: see
+    ``ray_first_hit_route``)."""
     _check_geometry('ray_first_hit_forward', occ, grids, radial_norm, steps)
     if act not in ('exp', 'sigmoid'):
         raise NotImplementedError(act)
@@ -140,7 +155,7 @@ def ray_first_hit_cuda(occ, grids, radial_norm, steps, act: str):
     n, g = grids.shape[0], steps.shape[0]
     out = torch.empty(b, n, z, dtype=torch.float32, device=occ.device)
     lib = load_library()
-    with torch.cuda.device(occ.device):
+    with on_device(occ.device):
         rc = lib.ray_first_hit_forward(
             occ.data_ptr(), int(occ.dtype == torch.bfloat16),
             grids.data_ptr(), radial_norm.data_ptr(), steps.data_ptr(),
@@ -165,7 +180,7 @@ def ray_aggregate_cuda(fused_map, grids, radial_norm, steps, c_r: int,
     out = torch.empty(b, n, c_r, dtype=torch.float32,
                       device=fused_map.device)
     lib = load_library()
-    with torch.cuda.device(fused_map.device):
+    with on_device(fused_map.device):
         rc = lib.ray_aggregate_forward(
             fused_map.data_ptr(), int(fused_map.dtype == torch.bfloat16),
             grids.data_ptr(), radial_norm.data_ptr(), steps.data_ptr(),
@@ -202,7 +217,7 @@ def ray_first_hit_backward_cuda(occ, grids, radial_norm, steps, act: str,
     _check_grad('ray_first_hit_backward', g, (b, n, z), occ.device)
     docc = torch.zeros(b, h, w, z, dtype=torch.float32, device=occ.device)
     lib = load_library()
-    with torch.cuda.device(occ.device):
+    with on_device(occ.device):
         rc = lib.ray_first_hit_backward(
             occ.data_ptr(), int(occ.dtype == torch.bfloat16),
             grids.data_ptr(), radial_norm.data_ptr(), steps.data_ptr(),
@@ -231,7 +246,7 @@ def ray_aggregate_backward_cuda(fused_map, grids, radial_norm, steps,
     dmap = torch.zeros(b, h, w, ct, dtype=torch.float32,
                        device=fused_map.device)
     lib = load_library()
-    with torch.cuda.device(fused_map.device):
+    with on_device(fused_map.device):
         rc = lib.ray_aggregate_backward(
             fused_map.data_ptr(), int(fused_map.dtype == torch.bfloat16),
             grids.data_ptr(), radial_norm.data_ptr(), steps.data_ptr(),

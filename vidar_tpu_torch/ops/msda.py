@@ -18,7 +18,8 @@ from typing import Sequence, Tuple
 
 import torch
 
-from ._build import KernelCounter, check, load_library, stream_of
+from ._build import (KernelCounter, check, load_library, on_device,
+                     stream_of)
 from .gather import bilinear_corners
 
 KERNEL = KernelCounter(
@@ -121,7 +122,7 @@ def msda_forward_cuda(value: torch.Tensor,
     out = torch.empty(b, q, heads * dim, dtype=torch.float32,
                       device=value.device)
     lib = load_library()
-    with torch.cuda.device(value.device):
+    with on_device(value.device):
         rc = lib.msda_forward(
             value.data_ptr(), int(value.dtype == torch.bfloat16),
             shapes_t.data_ptr(), starts_t.data_ptr(), loc.data_ptr(),
@@ -155,7 +156,7 @@ def msda_backward_cuda(value: torch.Tensor,
     dloc = torch.empty_like(loc)
     dweights = torch.empty_like(weights)
     lib = load_library()
-    with torch.cuda.device(value.device):
+    with on_device(value.device):
         rc = lib.msda_backward(
             value.data_ptr(), int(value.dtype == torch.bfloat16),
             shapes_t.data_ptr(), starts_t.data_ptr(), loc.data_ptr(),

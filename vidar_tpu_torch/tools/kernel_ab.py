@@ -1,31 +1,39 @@
-"""Time K1, K2, K4 and K5 of this checkout against other checkouts', on one
+"""Time K1-K5 and K9 of this checkout against other checkouts', on one
 GPU.
 
     python -m vidar_tpu_torch.tools.kernel_ab --other PATH [--other PATH ...]
-        [--kernels K1 K2 K4 K5] [--reps N]
+        [--kernels K1 K2 K3 K4 K5 K9] [--reps N]
 
 Each PATH is the root of another checkout of the repository, such as a git
 archive of the parent commit. Its kernels are built by its own
 ``ops/_build.py`` in a subprocess, and its library is loaded beside this
 checkout's. Both are called through their C entries (``msda_forward``,
-``dcn_conv_forward``, ``ray_aggregate_forward``, ``msda_backward``, whose
-signatures the checkouts share) on the same inputs, in turns for each other
-checkout (other, this, this, other): CUDA events, the mean of ``--reps``
-launches after a warm-up. K5's value gradient is zeroed before the launch
-whose output is compared, not before the timed ones (its atomics then add
-onto the previous sums, at the same cost).
+``dcn_conv_forward``, ``ray_first_hit_forward``, ``ray_aggregate_forward``,
+``msda_backward``, ``dcn_sample_forward``, whose signatures the checkouts
+share) on the same inputs, in turns for each other checkout (other, this,
+this, other): CUDA events around ``--reps`` launches after a warm-up, queued
+behind a sleep kernel so that the host's launch cost does not enter a short
+kernel's time (device time). K5's value gradient is zeroed before the
+launch whose output is compared, not before the timed ones (its atomics
+then add onto the previous sums, at the same cost).
 
 The inputs are the first of each case that the main paths give the kernels,
 at ``chip_smoke.py``'s shapes and weights:
 - the bf16 forecast of ``vidar_base`` (phase 2): K1 at TSA, SCA and the
   decoder, and at SCA on f32 values; K2 at stages 3 and 4 (30 images) and on
   the first 1 and 24 images of those inputs, the shapes of the pre-training
-  step's camera-sequential and history calls; K4 on the fused map;
+  step's camera-sequential and history calls; K3 on the bf16 occupancy and
+  K4 on the fused map;
 - the bf16 pre-training step (phase 5): K5 at TSA, SCA and the decoder;
-- the f32 fine-tune step of ``vidar_finetune_1_8_nusc_3future`` (phase 7):
-  K5 at its TSA, SCA and detection decoder, K4 on its f32 fused map.
+- the f32 full-window eval of ``vidar_finetune_1_8_nusc_3future`` (phase 6):
+  K9 at stages 3 and 4 (30 images);
+- the f32 fine-tune step of the same model (phase 7): K5 at its TSA, SCA
+  and detection decoder, K3 on its f32 occupancy, K4 on its f32 fused map,
+  and K9 at stages 3 and 4 on the history's 24 images (``b24``) and on one
+  camera-sequential image (``b1``).
 Prints the card and one JSON line: per case and other checkout, both times
-in ms and the largest difference between the two outputs (one per output).
+in ms and the largest difference between the two outputs (one per output;
+K9's taps must be equal, a difference of 0).
 """
 
 from __future__ import annotations
@@ -41,9 +49,12 @@ import torch
 
 from ..ops import _build, dcn, latent_render, msda
 
-KERNELS = ('K1', 'K2', 'K4', 'K5')
-ENTRIES = ('msda_forward', 'dcn_conv_forward', 'ray_aggregate_forward',
-           'msda_backward')
+KERNELS = ('K1', 'K2', 'K3', 'K4', 'K5', 'K9')
+ENTRIES = ('msda_forward', 'dcn_conv_forward', 'ray_first_hit_forward',
+           'ray_aggregate_forward', 'msda_backward', 'dcn_sample_forward')
+# a sleep kernel of ~5 ms (at the H100's 1.98 GHz boost clock or below)
+# that outlasts the host's queueing of the timed launches
+SLEEP_CYCLES = 10_000_000
 # chip_smoke.py's shapes: bs 1, 4+1 frames, 6 cameras at 928x1600
 BATCH = dict(bs=1, queue_length=4, num_cams=6, img_h=928, img_w=1600)
 
@@ -96,8 +107,19 @@ def _run_hooked(hooks, fn):
     torch.cuda.synchronize()
 
 
+def _dcn_case(kernel, args, images=(30,)):
+    """'K2 stage3' ... by ResNet stage (C = 256 or 512), with ',b1' or
+    ',b24' unless the call has the 30 images of a window; None for a call
+    of another stage or image count."""
+    stage = {256: 'stage3', 512: 'stage4'}.get(args['x'].shape[-1])
+    b = args['x'].shape[0]
+    if stage is None or b not in images:
+        return None
+    return f'{kernel} {stage}' + ('' if b == 30 else f',b{b}')
+
+
 def _forecast_inputs(dev, kept, kernels):
-    """K1, K2 and K4 cases of one bf16 forecast (chip_smoke.py phase 2)."""
+    """K1-K4 cases of one bf16 forecast (chip_smoke.py phase 2)."""
     from ..configs import vidar_base
     from ..data import make_synthetic_batch
     from ..evals.forecast_runner import ForecastRunner
@@ -110,8 +132,8 @@ def _forecast_inputs(dev, kept, kernels):
                                  max_points=32768, device=dev, **BATCH)
     hooks = {
         msda.KERNEL: _keeper(kept, _msda_case('K1', '')),
-        dcn.KERNEL: _keeper(kept, lambda a: {
-            256: 'K2 stage3', 512: 'K2 stage4'}.get(a['x'].shape[-1])),
+        dcn.KERNEL: _keeper(kept, lambda a: _dcn_case('K2', a)),
+        latent_render.FIRST_HIT: _keeper(kept, lambda a: 'K3 forecast,bf16'),
         latent_render.AGGREGATE: _keeper(kept,
                                          lambda a: 'K4 forecast,bf16')}
     _run_hooked(hooks, lambda: ForecastRunner(
@@ -144,10 +166,12 @@ def _pretrain_inputs(dev, kept):
                 lambda: step(batch))
 
 
-def _finetune_inputs(dev, kept):
-    """K5 and K4 cases of one f32 fine-tune step (chip_smoke.py phase 7)."""
+def _finetune_inputs(dev, kept, kernels):
+    """K9 cases of one f32 full-window eval (chip_smoke.py phase 6), and K3,
+    K4, K5 and K9 cases of one f32 fine-tune step (phase 7)."""
     from ..configs import vidar_finetune_1_8_nusc_3future
     from ..data import make_synthetic_det_batch
+    from ..evals.det_runner import DetectionRunner
     from ..models import BEVFormer
     from ..train import DetTrainStep, make_optimizer
     det = BEVFormer(**vidar_finetune_1_8_nusc_3future(), device=dev)
@@ -155,12 +179,20 @@ def _finetune_inputs(dev, kept):
     batch = make_synthetic_det_batch(np.random.default_rng(0), max_points=64,
                                      max_gt=128, num_gt=40, device=dev,
                                      **BATCH)
+    if 'K9' in kernels:
+        det.eval()
+        _run_hooked({dcn.SAMPLE: _keeper(kept, lambda a: _dcn_case('K9', a))},
+                    lambda: DetectionRunner(det, device=dev)(batch))
     step = DetTrainStep(det, make_optimizer(det, device=dev),
                         generator=torch.Generator(device=dev).manual_seed(6),
                         device=dev)
     _run_hooked({msda.BACKWARD: _keeper(kept, _msda_case('K5', ',f32 ft')),
+                 latent_render.FIRST_HIT: _keeper(
+                     kept, lambda a: 'K3 finetune,f32'),
                  latent_render.AGGREGATE: _keeper(
-                     kept, lambda a: 'K4 finetune,f32')},
+                     kept, lambda a: 'K4 finetune,f32'),
+                 dcn.SAMPLE: _keeper(kept, lambda a: _dcn_case('K9', a,
+                                                               (1, 24)))},
                 lambda: step(batch))
 
 
@@ -188,6 +220,26 @@ def _launcher(lib, case, a, dev):
             t.data_ptr() for t in outs) + tail
         return (lambda: _build.check(lib.msda_backward(*args), case),
                 outs[0].zero_, outs)
+    if case.startswith('K3'):
+        occ = a['occ']
+        b, h, w_, z = occ.shape
+        n, g = a['grids'].shape[0], a['steps'].shape[0]
+        out = torch.empty(b, n, z, device=dev)
+        args = (occ.data_ptr(), int(occ.dtype == torch.bfloat16),
+                a['grids'].data_ptr(), a['radial_norm'].data_ptr(),
+                a['steps'].data_ptr(), out.data_ptr(), b, h, w_, z, n, g,
+                int(a['act'] == 'exp'), stream)
+        return (lambda: _build.check(lib.ray_first_hit_forward(*args), case),
+                lambda: None, [out])
+    if case.startswith('K9'):
+        x = a['x']
+        b, h, w_, c = x.shape
+        q = a['sx'].shape[1]
+        out = torch.empty(b, q, dcn.TAPS, c, device=dev)
+        args = (x.data_ptr(), a['sx'].data_ptr(), a['sy'].data_ptr(),
+                a['mask'].data_ptr(), out.data_ptr(), b, h, w_, c, q, stream)
+        return (lambda: _build.check(lib.dcn_sample_forward(*args), case),
+                lambda: None, [out])
     if case.startswith('K4'):
         fm = a['fused_map']
         b, h, w_, ct = fm.shape
@@ -215,6 +267,7 @@ def _time_ms(fn, reps):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)  # the launches queue behind it
     start.record()
     for _ in range(reps):
         fn()
@@ -250,12 +303,12 @@ def main(argv=None) -> int:
     others = {root: _other_library(root) for root in args.other}
     this = _bind(_build.load_library())
     kept = {}
-    if {'K1', 'K2', 'K4'} & set(args.kernels):
+    if {'K1', 'K2', 'K3', 'K4'} & set(args.kernels):
         _forecast_inputs(dev, kept, args.kernels)
     if 'K5' in args.kernels:
         _pretrain_inputs(dev, kept)
-    if {'K4', 'K5'} & set(args.kernels):
-        _finetune_inputs(dev, kept)
+    if {'K3', 'K4', 'K5', 'K9'} & set(args.kernels):
+        _finetune_inputs(dev, kept, args.kernels)
     torch.cuda.empty_cache()
     results = {}
     for case, a in sorted(kept.items()):
