@@ -15,7 +15,8 @@ it drives; a kernel of the path that never launched fails the run:
    and the TF32 switches, set explicitly (off);
 1. the build of the CUDA kernels from ``vidar_tpu_torch/csrc`` (K1-K4, the
    backwards K5, K6/K7, K8, K9 and K10), K2's ``wgmma`` instructions and
-   K5's vector f32 reductions counted in ``cuobjdump -sass`` of the build;
+   K5's and K6/K7's vector f32 reductions counted in ``cuobjdump -sass`` of
+   the build;
 2. one full forecast of ``vidar_base`` in bf16 at the nuScenes shapes of
    bench.py (bs 1, 4+1 frames, 6 cameras, 928x1600, 6 futures, 32768 rays),
    random weights (N(0, 1) x 0.02 from a seeded generator), through
@@ -26,11 +27,13 @@ it drives; a kernel of the path that never launched fails the run:
    inputs: error and CUDA-event times of both, and the bound: the larger of
    the bytes the function must move over 3.35 TB/s and its floating-point
    operations over the card's peak rate for their type, with the share of
-   it each kernel reaches (bound / time); the kernel that each K3 and K9
-   case ran (its ``path`` in the JSON line: ``ray_first_hit_route``'s
-   vector or first design, ``dcn_sample_route``'s staged or scalar), and
-   K9's
-   device-only time (its launches queued behind a sleep kernel) beside the
+   it each kernel reaches (bound / time); the kernel that each K3, K6/K7,
+   K9 and K10 case ran (its ``path`` in the JSON line:
+   ``ray_first_hit_route``'s vector or first design,
+   ``ray_first_hit_backward_route``'s vector or scalar,
+   ``dcn_sample_route``'s staged or scalar, ``dcn_sample16_route``'s
+   staged, vector or scalar), and the device-only time of K6/K7, K9 and K10
+   (``device_ms``: launches queued behind a sleep kernel) beside the
    wrapper-inclusive one;
 4. a second, timed forecast: seconds, samples/s, peak device memory (the
    forecast's own: the train model does not exist yet);
@@ -623,16 +626,17 @@ def main() -> int:
           f'(dcn_conv_kernel)', flush=True)
     if not hgmma:
         raise RuntimeError('K2 was built without wgmma')
-    # K5 scatters 4 channels an instruction: Hopper's vector f32 reductions
-    # (red.global.add.v4.f32)
-    k5_sass = sass.split('msda_backward_vec_kernel')[1:]
-    red4 = [line.strip() for chunk in k5_sass
-            for line in chunk.split('Function :')[0].splitlines()
-            if ('RED' in line or 'ATOM' in line) and 'F32x4' in line]
-    print(f'cuobjdump -sass: {len(red4)} vector f32 reductions in K5 '
-          f'(msda_backward_vec_kernel), e.g. {red4[:1]}', flush=True)
-    if not red4:
-        raise RuntimeError('K5 was built without vector atomics')
+    # K5 scatters 4 channels an instruction, K6/K7's vector kernel 4 bins:
+    # Hopper's vector f32 reductions (red.global.add.v4.f32)
+    for label, fn in (('K5', 'msda_backward_vec_kernel'),
+                      ('K6/K7', 'ray_first_hit_backward_vec_kernel')):
+        red4 = [line.strip() for chunk in sass.split(fn)[1:]
+                for line in chunk.split('Function :')[0].splitlines()
+                if ('RED' in line or 'ATOM' in line) and 'F32x4' in line]
+        print(f'cuobjdump -sass: {len(red4)} vector f32 reductions in '
+              f'{label} ({fn}), e.g. {red4[:1]}', flush=True)
+        if not red4:
+            raise RuntimeError(f'{label} was built without vector atomics')
 
     forward_kernels = [msda.KERNEL, dcn.KERNEL, latent_render.FIRST_HIT,
                        latent_render.AGGREGATE]
@@ -725,16 +729,22 @@ def main() -> int:
         plain = run_plain().float().reshape(lib.shape)
         print(f'  grid_sample yardstick[{case}]: max abs diff from the plain '
               f'version {(lib - plain).abs().max().item():.3g}', flush=True)
-        if counter is dcn.SAMPLE:
-            # the kernel K9 ran, and its device time beside the
-            # wrapper-inclusive time of the line above
-            path = dcn.dcn_sample_route(a['x'], a['sx'].shape[1])
-            device_ms = _device_ms(run_kernel)
-            results[-1].update(path=path, device_ms=device_ms)
-            print(f'  {counter.name}[{case}]: path {path}; device-only '
-                  f'{device_ms:.4f} ms, with the wrapper '
-                  f'{results[-1]["ms"]:.4f} ms', flush=True)
+        # the kernel K9 or K10 ran, and its device time beside the
+        # wrapper-inclusive time of the line above
+        route = (dcn.dcn_sample_route if counter is dcn.SAMPLE
+                 else dcn.dcn_sample16_route)
+        record_path(counter, case, route(a['x'], a['sx'].shape[1]),
+                    run_kernel)
         return ok
+
+    def record_path(counter, case, path, run_kernel):
+        """Adds the kernel a case ran and its device-only time to the
+        case's JSON entry (the last recorded)."""
+        device_ms = _device_ms(run_kernel)
+        results[-1].update(path=path, device_ms=device_ms)
+        print(f'  {counter.name}[{case}]: path {path}; device-only '
+              f'{device_ms:.4f} ms, with the wrapper '
+              f'{results[-1]["ms"]:.4f} ms', flush=True)
 
     oks = []
     kept = keepers[msda.KERNEL.name].inputs
@@ -899,12 +909,21 @@ def main() -> int:
                 (a['value'], a['loc'], a['weights']), n))
         a = kept[latent_render.FIRST_HIT_BACKWARD.name].inputs[render_case]
         geo = (a['grids'], a['radial_norm'], a['steps'])
+
+        def first_hit_backward():
+            return (latent_render.ray_first_hit_backward_cuda(
+                a['occ'], *geo, a['act'], a['g']),)
         oks.append(compare_backward(
             latent_render.FIRST_HIT_BACKWARD, render_case, a,
-            lambda: (latent_render.ray_first_hit_backward_cuda(
-                a['occ'], *geo, a['act'], a['g']),),
+            first_hit_backward,
             lambda o: latent_render.ray_first_hit_plain(o, *geo, a['act']),
             (a['occ'],), n))
+        # the kernel K6/K7 ran; its device time includes the wrapper's
+        # zeroing of d occ (and, for a bf16 map, the cast to bf16)
+        record_path(latent_render.FIRST_HIT_BACKWARD, render_case,
+                    latent_render.ray_first_hit_backward_route(a['occ'],
+                                                               a['g']),
+                    first_hit_backward)
         b = kept[latent_render.AGGREGATE_BACKWARD.name].inputs[render_case]
         geo_b = (b['grids'], b['radial_norm'], b['steps'])
         rest = (b['c_r'], b['zdim'], b['eps'])

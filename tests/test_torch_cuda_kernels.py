@@ -438,6 +438,42 @@ def test_dcn_sample16_kernel_rejects_bad_input(dev):
     assert dcn.SAMPLE16.launches == before
 
 
+@pytest.mark.parametrize('sigma', [0.5, 4.0])
+@pytest.mark.parametrize('layout', ['conv', 'other'])
+@pytest.mark.parametrize('c', [64, 128, 256, 20])
+def test_dcn_sample16_kernel_routes_equal_plain(dev, c, layout, sigma):
+    """K10 on each of its kernels, at B = 2 on an 11 x 37 map, which the 2 x
+    16 tiles do not divide: a conv's Q = H*W taps displaced by N(0, 0.5) px
+    keep their corners inside the staged windows, by N(0, 4) px send many
+    outside them (read from x); C = 64, 128 and 256 run the staged kernel
+    for Q = H*W and the vector one for another Q, C = 20 and a view of x off
+    a 16-byte boundary the scalar one. Zero-ring edges and taps wholly off
+    the map are written in. The taps equal the plain version's bit for bit
+    (the same products and sum order, no FMAs, one rounding to bf16)."""
+    rng = np.random.default_rng(24)
+    b, h, w = 2, 11, 37
+    q = h * w if layout == 'conv' else 150
+    x = _t(rng.standard_normal((b, h, w, c)), dev, torch.bfloat16)
+    sx, sy, mask = _dcn_sample_inputs(rng, b, h, w, q, sigma, dev)
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)[1:]
+    shifted = shifted.view(x.shape).copy_(x)
+    assert shifted.data_ptr() % 16
+    assert dcn.dcn_sample16_route(x, q) == (
+        'scalar' if c % 8 else 'staged' if layout == 'conv' else 'vector')
+    assert dcn.dcn_sample16_route(shifted, q) == 'scalar'
+    want = dcn.dcn_sample16_plain(x, sx, sy, mask)
+    before = dcn.SAMPLE16.launches
+    for xi in (x, shifted):
+        got = dcn.dcn_sample16_cuda(xi, sx, sy, mask)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16 and got.shape == (b, q, 9 * c)
+        assert torch.equal(got, want), (got.float() -
+                                        want.float()).abs().max().item()
+        assert not bool(got[0, 0, 8 * c:].any())
+        assert not bool(got[b - 1, q - 1].any())
+    assert dcn.SAMPLE16.launches == before + 2
+
+
 @pytest.mark.parametrize('c,co,route', [(64, 64, 'K10'), (128, 128, 'K2'),
                                         (256, 64, 'K10')])
 def test_bf16_deform_conv_routes(dev, c, co, route):
@@ -780,6 +816,87 @@ def test_first_hit_backward_kernel_matches_plain(dev, act, dtype):
     # (bf16: the kernel rounds the gradient to bf16, 2^-9 relative)
     tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
     assert _rel_err(got, want) <= tol
+
+
+# the gradient's tolerance against autograd of the plain version in f32,
+# relative to its largest element: f32 atomic sums in another order, and a
+# bf16 gradient rounded once to bf16 (chip_smoke.py's BACKWARD_RTOL)
+_FIRST_HIT_BWD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 4e-3}
+
+
+def _check_first_hit_backward(occ, geo, act, g, routes):
+    """K6/K7 on occ and on a view of it off a 16-byte boundary, against
+    autograd of ``ray_first_hit_plain``; ``routes`` the kernels they take."""
+    shifted = torch.empty(occ.numel() + 1, dtype=occ.dtype,
+                          device=occ.device)[1:]
+    shifted = shifted.view(occ.shape).copy_(occ)
+    assert shifted.data_ptr() % 16
+    (want,) = _plain_grads(
+        lambda o: latent_render.ray_first_hit_plain(o, *geo, act), (occ,), g)
+    before = latent_render.FIRST_HIT_BACKWARD.launches
+    for o, route in zip((occ, shifted), routes):
+        assert latent_render.ray_first_hit_backward_route(o, g) == route
+        got = latent_render.ray_first_hit_backward_cuda(o, *geo, act, g)
+        torch.cuda.synchronize()
+        assert got.dtype == occ.dtype and got.shape == occ.shape
+        assert bool(torch.isfinite(got).all())
+        err = _rel_err(got, want)
+        assert err <= _FIRST_HIT_BWD_RTOL[occ.dtype], (route, err)
+    assert latent_render.FIRST_HIT_BACKWARD.launches == before + 2
+
+
+@pytest.mark.parametrize('z', [16, 4, 5])
+@pytest.mark.parametrize('act', ['sigmoid', 'exp'])
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_first_hit_backward_kernel_routes_match_plain(dev, dtype, act, z):
+    """K6/K7 at the presets' geometry (200 x 200 cells, G = 256): Z = 16 and
+    4 run the vector kernel, Z = 5 and a map view off a 16-byte boundary the
+    scalar one. The map holds a block of logits +30 right of the centre,
+    which saturates the rays through it (P = 0 in f32), and a block of -30;
+    g has zero rows (every third cell) and scattered zero bins."""
+    rng = np.random.default_rng(25)
+    h = w = 200
+    occ = 2.0 * rng.standard_normal((1, h, w, z))
+    occ[:, 95:105, 104:124] = 30.0
+    occ[:, 40:60, 40:60] = -30.0
+    occ = _t(occ, dev, dtype)
+    geo = _geometry(h, w, 256, dev)
+    g = rng.standard_normal((1, h * w, z))
+    g[:, ::3] = 0.0
+    g[rng.uniform(size=g.shape) < 0.2] = 0.0
+    vec = 'scalar' if z == 5 else 'vector'
+    _check_first_hit_backward(occ, geo, act, _t(g, dev), (vec, 'scalar'))
+
+
+@pytest.mark.parametrize('act', ['sigmoid', 'exp'])
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_first_hit_backward_kernel_any_waypoint_count(dev, dtype, act):
+    """G = 1100 waypoints, more than the first design's checkpoint table
+    held (1024), 0.04 px apart on a 64 x 64 map, so the cells near the
+    corners have over 1024 inside their radius; both kernels."""
+    from vidar_tpu_torch.models.latent_rendering import ray_geometry
+    rng = np.random.default_rng(26)
+    h = w = 64
+    occ = _t(0.3 * rng.standard_normal((1, h, w, 16)), dev, dtype)
+    geo = ray_geometry(h, w, 1100, 0.02, dev)
+    g = _t(rng.standard_normal((1, h * w, 16)), dev)
+    _check_first_hit_backward(occ, geo, act, g, ('vector', 'scalar'))
+
+
+@pytest.mark.parametrize('act', ['sigmoid', 'exp'])
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_first_hit_backward_kernel_any_step_order(dev, dtype, act):
+    """The vector K6/K7 stops its walks at the first batch of waypoints
+    outside the cell only when the steps ascend from zero; shuffled steps
+    walk every waypoint, on both kernels."""
+    rng = np.random.default_rng(27)
+    h = w = 60
+    occ = _t(2.0 * rng.standard_normal((1, h, w, 16)), dev, dtype)
+    grids, rn, steps = _geometry(h, w, 77, dev)
+    steps = steps[torch.from_numpy(rng.permutation(77)).to(dev)]
+    g = _t(rng.standard_normal((1, h * w, 16)), dev)
+    _check_first_hit_backward(occ, (grids, rn, steps), act, g,
+                              ('vector', 'scalar'))
 
 
 @pytest.mark.parametrize('c_r,z', [(16, 16), (8, 4)])

@@ -56,8 +56,6 @@
 // the vector kernel; any other Z or alignment the first design's kernel.
 // ray_first_hit_route names the kernel a call takes.
 
-#include <type_traits>
-
 #include "ray_common.cuh"
 
 namespace {
@@ -99,74 +97,6 @@ __global__ void ray_first_hit_kernel(const T* __restrict__ occ,
   }
   const float logit = ray::sample(map, H, W, Z, z, cx, cy);
   out[idx] = __fmul_rn(prod, activate(logit, act_exp));
-}
-
-// CPL bins of T in one load: 16 bytes, or 8 (4 bf16 bins)
-template <typename T, int CPL>
-struct Chunk {
-  static constexpr int BYTES = CPL * (int)sizeof(T);
-  using Raw = typename std::conditional<BYTES == 16, uint4, uint2>::type;
-  __device__ __forceinline__ static void unpack(const Raw& r,
-                                                float (&f)[CPL]) {
-    const T* e = reinterpret_cast<const T*>(&r);
-#pragma unroll
-    for (int k = 0; k < CPL; ++k) f[k] = ray::to_f32(e[k]);
-  }
-};
-
-// A sample point's top-left corner and fractions, ray::sample's
-// arithmetic: {ix0, iy0, wx1, wy1} (the fractions' bits), ix0 = OFF_MAP for
-// a point beyond the zero ring (a zero sample).
-constexpr int OFF_MAP = -(1 << 30);
-
-__device__ __forceinline__ int4 corner_of(int H, int W, float gx, float gy) {
-  const float x =
-      __fmul_rn(__fsub_rn(__fmul_rn(__fadd_rn(gx, 1.f), (float)W), 1.f), 0.5f);
-  const float y =
-      __fmul_rn(__fsub_rn(__fmul_rn(__fadd_rn(gy, 1.f), (float)H), 1.f), 0.5f);
-  const float x0f = floorf(x);
-  const float y0f = floorf(y);
-  const int ix0 = (int)x0f;
-  const int iy0 = (int)y0f;
-  if (iy0 < -1 || iy0 > H - 1 || ix0 < -1 || ix0 > W - 1)
-    return make_int4(OFF_MAP, 0, 0, 0);
-  return make_int4(ix0, iy0, __float_as_int(__fsub_rn(x, x0f)),
-                   __float_as_int(__fsub_rn(y, y0f)));
-}
-
-// The lane's CPL bins (part `part` of each corner row) of the bilinear
-// sample at corner `cr`: the on-map corners' chunks, all read before any is
-// used, summed in ray::sample's corner order with fused multiply-adds.
-template <typename T, int ZD, int CPL>
-__device__ __forceinline__ void sample_bins(const T* __restrict__ map, int H,
-                                            int W, int part, int4 cr,
-                                            float (&v)[CPL]) {
-  using C = Chunk<T, CPL>;
-#pragma unroll
-  for (int k = 0; k < CPL; ++k) v[k] = 0.f;
-  if (cr.x == OFF_MAP) return;
-  const float wx1 = __int_as_float(cr.z), wy1 = __int_as_float(cr.w);
-  const float wx[2] = {__fsub_rn(1.f, wx1), wx1};
-  const float wy[2] = {__fsub_rn(1.f, wy1), wy1};
-  typename C::Raw raw[4];
-  bool on[4];
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int iy = cr.y + (c >> 1), ix = cr.x + (c & 1);
-    on[c] = iy >= 0 && iy < H && ix >= 0 && ix < W;
-    if (on[c])
-      raw[c] = __ldg(reinterpret_cast<const typename C::Raw*>(
-                         map + (iy * W + ix) * ZD) + part);
-  }
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    if (!on[c]) continue;
-    const float w = __fmul_rn(wy[c >> 1], wx[c & 1]);
-    float e[CPL];
-    C::unpack(raw[c], e);
-#pragma unroll
-    for (int k = 0; k < CPL; ++k) v[k] = fmaf(e[k], w, v[k]);
-  }
 }
 
 // One warp per (batch, cell). The warp walks the waypoints 32 at a time, a
@@ -230,12 +160,13 @@ ray_first_hit_vec_kernel(const T* __restrict__ occ,
       continue;
     }
     if (inside)  // the waypoint's place among the batch's inside ones
-      batch[__popc(in & ((1u << lane) - 1u))] = corner_of(H, W, px, py);
+      batch[__popc(in & ((1u << lane) - 1u))] =
+          ray::corner_of(H, W, px, py);
     __syncwarp();
     const int n_in = __popc(in);
     for (int k = lane / S; k < n_in; k += PER) {
       float logit[CPL];
-      sample_bins<T, ZD, CPL>(map, H, W, part, batch[k], logit);
+      ray::sample_bins<T, ZD, CPL>(map, H, W, part, batch[k], logit);
 #pragma unroll
       for (int z = 0; z < CPL; ++z)
         acc[z] = EXP ? __fadd_rn(acc[z], fmaxf(logit[z], 0.f))
@@ -255,7 +186,8 @@ ray_first_hit_vec_kernel(const T* __restrict__ occ,
   }
   if (lane < S) {
     float logit[CPL];
-    sample_bins<T, ZD, CPL>(map, H, W, part, corner_of(H, W, cx, cy), logit);
+    ray::sample_bins<T, ZD, CPL>(map, H, W, part,
+                                 ray::corner_of(H, W, cx, cy), logit);
     float t[CPL];
 #pragma unroll
     for (int k = 0; k < CPL; ++k)

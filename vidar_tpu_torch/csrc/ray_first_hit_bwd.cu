@@ -6,39 +6,85 @@
 // (K7, the bilinear scatter of dlogit into the packed occupancy gradient),
 // both called from _first_hit_bwd (vidar_tpu/models/latent_rendering.py:
 // 236-298). The forward (K3, csrc/ray_first_hit.cu) is
-//   out[z] = P * L,   P = prod_k (1 - ps_k m_k),   L = ps_cell,
-// ps = act(bilinear occupancy logit), m_k = 1 for the waypoints strictly
+//   out[z] = P * L,   P = prod_k (1 - p_k m_k),   L = p_cell,
+// p = act(bilinear occupancy logit), m_k = 1 for the waypoints strictly
 // closer to the map centre than the cell. Its gradient per waypoint is
-//   dlogit_k    = -g L pref_k suf_k m_k act'(logit_k),
-//   dlogit_cell =  g P act'(logit_cell),
-// pref_k / suf_k the products of the factors before / after waypoint k.
-// Nothing is divided by (1 - ps m), so a saturated ray (a factor of
-// exactly 0) gets the exact gradient. Only the occupancy map gets a
-// gradient: the ray geometry is constant, as in the JAX custom_vjp.
+//   dlogit_k = -g L act'(l_k) m_k prod_{j != k} (1 - p_j m_j),
+// and for both activations act'(l_k) holds the factor 1 - p_k, so no
+// product has to leave waypoint k out:
+//   sigmoid         act' = p (1 - p)         dlogit_k = -g L P p_k m_k
+//   1 - exp(-relu)  act' = e^-l [l > 0]      dlogit_k = -g L P [l_k > 0] m_k
+//                        = (1 - p) [l > 0]
+// and the cell's own term is dlogit_cell = g P act'(l_cell). P is formed as
+// K3 forms it, in exact arithmetic the product of the factors 1 - p:
+// sigmoid's 1 - p = 1 / (1 + e^l), so P is one division per bin by the
+// product of the denominators; the exponential's 1 - p = e^-relu(l), so P
+// = exp(-sum relu(l)). Nothing is divided by 1 - p m: a saturated ray (P =
+// 0) gets the exact gradient, and with the exponential a waypoint whose
+// own factor rounds to 0 in the plain version's 1 - (1 - e^-l) keeps the
+// gradient autograd gives it (e^-l times the others' product), which that
+// rounded product would zero. Only the occupancy map gets a gradient: the
+// ray geometry is constant, as in the JAX custom_vjp.
 //
-// What bounds it on the H100: as in K3, cached dependent-address loads in a
-// sequential walk, plus here one atomic update of 4 corners per inside
-// waypoint (counted from the shapes: 40000 cells x 16 bins x ~80 inside
-// waypoints x 4 corners = 0.2G f32 atomics into a 2.6 MB map that stays in
-// L2). The JAX package writes the [B, N, S*Z] f32 dlogit to HBM between its
-// two kernels (658 MB at the flagship shape) only because Mosaic needed a
+// What bounds it on the H100: instruction issue, as in K3, plus the
+// scatter: 40000 cells x ~77 inside waypoints x 4 corners x 16 bins =
+// 0.2G f32 adds into a 2.6 MB map that stays in L2 (0.0236 ms of f32
+// operations at the pre-training step's shapes, chip_smoke.py's bound).
+// The JAX package writes the [B, N, S*Z] f32 dlogit to HBM between its two
+// kernels (658 MB at the flagship shape) only because Mosaic needed a
 // separate scatter kernel; here each dlogit is scattered as soon as it is
-// formed, so nothing goes to device memory but the map gradient. The
-// design: one thread per (batch, cell, z), z fastest, as in K3. A thread
-// cannot keep 256 prefix products in registers, so the forward sweep keeps
-// a checkpoint of the prefix product every SEG waypoints (in local memory);
-// the reverse sweep then walks the segments from the last, recomputes a
-// segment's SEG activations and prefixes in registers from its checkpoint,
-// and runs the suffix product backward through it. Each inside waypoint is
-// sampled twice, nothing is stored per waypoint, and the products are taken
-// in the forward's order, so pref_k is the forward's own value.
+// formed.
+//
+// The first design (one thread per (batch, cell, bin), 1.942 ms on the
+// pre-training step's bf16 map and 0.815 ms on the fine-tune's f32 one,
+// chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W) walked all G waypoints
+// twice in every thread, recomputed each waypoint's geometry once per bin,
+// kept a checkpoint of the prefix product every 16 waypoints in a 64-entry
+// local table (so G <= 1024) for a reverse sweep that formed the suffix
+// products, and scattered each corner and bin with a scalar atomic.
+//
+// The vector design takes K3's layout: one warp per (batch, cell), the
+// waypoints 32 at a time, a lane each for the geometry (ray_common.cuh's
+// round-to-nearest intrinsics, so the strict-inside test is the plain
+// version's bit for bit); a ballot lists the inside waypoints' sample
+// corners in shared memory, and S lanes a listed waypoint sample it over
+// 4 bins of the corner rows (8 or 16 bytes). Two walks over the list:
+//   1. P per bin (K3's accumulators, xor-shuffles across the lanes), then
+//      the cell's own term, scattered by the first S lanes;
+//   2. each listed waypoint re-sampled, its dlogit -g L P (p_k or
+//      [l_k > 0]) formed per bin and scattered into the 4 corner rows with
+//      float4 reductions (red.global.add.v4.f32), runs of 4 zero bins
+//      skipped. A lane group takes a run of consecutive waypoints and
+//      merges the corner rows that neighbours share before they go out.
+// A cell whose g is zero in every bin, or whose g L P is, skips the walks
+// it does not need. When the steps ascend from zero (the block checks
+// them) the inside waypoints are a prefix, and both walks stop at the
+// first batch with none. No table, no reverse sweep, any G.
+//
+// Measured (tools/kernel_ab.py, device time, NVIDIA H100 80GB HBM3 at
+// 700.00 W, against the first design in the same process): the
+// pre-training step's bf16 map 0.345 ms (1.906), the fine-tune step's f32
+// map 0.108 ms (0.784), where g is zero in 74% of the cells; each map cast
+// to the other dtype 0.356 and 0.104 ms (the first design 1.901 and
+// 0.788): the cells' zero gradients, not the dtype, set both designs' gap
+// between the two steps. Timed variants (copies with one edit, the same
+// call), bf16 input: walk 1 alone 0.129 ms; walk 2 without its reductions
+// (merge kept) 0.319; without the merge 0.452; plain stores for the
+// reductions 0.425. So walk 2's sampling and merging, instruction issue,
+// bound it now, and the merge takes 0.107 ms off. Earlier calls: 2
+// lanes a bf16 row (16-byte chunks, 8 bins), whose reductions each fill
+// half a 32-byte sector, 0.946 ms; 4 bins a lane without the merge 0.445;
+// the merge with no reductions within 3 px of the map centre, where every
+// ray starts, unchanged (no contention left to remove).
+//
+// Z = 16 and Z = 4 (the presets) with a 16-byte aligned map and gradient
+// run the vector kernel; any other Z or alignment the scalar kernel, the
+// first design's layout (a thread per (batch, cell, bin)) with the same two
+// walks. ray_first_hit_backward_route names the kernel a call takes.
 
 #include "ray_common.cuh"
 
 namespace {
-
-constexpr int SEG = 16;      // waypoints per checkpoint segment
-constexpr int MAX_SEG = 64;  // G <= SEG * MAX_SEG waypoints
 
 // p = act(logit) as K3 computes it, and dp/dlogit as autograd of the plain
 // version takes it (relu' = [logit > 0]).
@@ -54,6 +100,56 @@ __device__ __forceinline__ float activate(float logit, int act_exp,
   return p;
 }
 
+// Walk 1's accumulator of the factors 1 - p: the exponent sum (exponential)
+// or the product of the denominators 1 + e^l (sigmoid); and P from it.
+__device__ __forceinline__ float accumulate(float acc, float logit,
+                                            bool act_exp) {
+  return act_exp ? __fadd_rn(acc, fmaxf(logit, 0.f))
+                 : __fmul_rn(acc, __fadd_rn(1.f, expf(logit)));
+}
+
+__device__ __forceinline__ float product(float acc, bool act_exp) {
+  return act_exp ? expf(-acc) : 1.f / acc;
+}
+
+// dlogit of an inside waypoint with logit l, given -g L P
+__device__ __forceinline__ float dlogit(float l, float ngl, bool act_exp) {
+  return act_exp ? (l > 0.f ? ngl : 0.f)
+                 : ngl * __fdividef(1.f, 1.f + expf(-l));
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// row[0:4] += v with one vector f32 reduction (red.global.add.v4.f32),
+// skipped for 4 zeros
+__device__ __forceinline__ void red4(float* row, float4 v) {
+  if (v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f)
+    atomicAdd(reinterpret_cast<float4*>(row), v);
+}
+
+// The 4 corner rows of sample corner cr (pixel index, -1 off the map) and
+// d times each one's bilinear weight.
+__device__ __forceinline__ void corner_rows(int H, int W, int4 cr,
+                                            const float (&d)[4], int (&np)[4],
+                                            float4 (&nv)[4]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) np[c] = -1;
+  if (cr.x == ray::OFF_MAP) return;
+  const float wx1 = __int_as_float(cr.z), wy1 = __int_as_float(cr.w);
+  const float wx[2] = {__fsub_rn(1.f, wx1), wx1};
+  const float wy[2] = {__fsub_rn(1.f, wy1), wy1};
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int iy = cr.y + (c >> 1), ix = cr.x + (c & 1);
+    const float w = __fmul_rn(wy[c >> 1], wx[c & 1]);
+    if (iy >= 0 && iy < H && ix >= 0 && ix < W) np[c] = iy * W + ix;
+    nv[c] = make_float4(d[0] * w, d[1] * w, d[2] * w, d[3] * w);
+  }
+}
+
+// The scalar kernel: one thread per (batch, cell, bin), the bin fastest.
 template <typename T>
 __global__ void ray_first_hit_backward_kernel(
     const T* __restrict__ occ, const float* __restrict__ grids,
@@ -73,70 +169,245 @@ __global__ void ray_first_hit_backward_kernel(
   const float cx = __fsub_rn(__fmul_rn(grids[2 * n], 2.f), 1.f);
   const float cy = __fsub_rn(__fmul_rn(grids[2 * n + 1], 2.f), 1.f);
   const float cell_len = ray::length2(cx, cy);
-  const int nseg = (G + SEG - 1) / SEG;
 
-  // forward sweep: the full product P, and the prefix product at the start
-  // of every segment
-  float ckpt[MAX_SEG];
-  float prod = 1.f;
-  for (int sg = 0; sg < nseg; ++sg) {
-    ckpt[sg] = prod;
-    const int k1 = min(G, (sg + 1) * SEG);
-    for (int k = sg * SEG; k < k1; ++k) {
-      const float step = __ldg(steps + k);
-      const float px = ray::waypoint(rx, step);
-      const float py = ray::waypoint(ry, step);
-      if (!(ray::length2(px, py) < cell_len)) continue;  // factor 1
-      float dact;
-      const float p =
-          activate(ray::sample(map, H, W, Z, z, px, py), act_exp, &dact);
-      prod = __fmul_rn(prod, __fsub_rn(1.f, p));
-    }
+  // walk 1: P
+  float acc = act_exp ? 0.f : 1.f;
+  for (int k = 0; k < G; ++k) {
+    const float step = __ldg(steps + k);
+    const float px = ray::waypoint(rx, step);
+    const float py = ray::waypoint(ry, step);
+    if (!(ray::length2(px, py) < cell_len)) continue;  // factor 1
+    acc = accumulate(acc, ray::sample(map, H, W, Z, z, px, py), act_exp);
   }
+  const float prod = product(acc, act_exp);
   float dact_cell;
   const float p_cell =
       activate(ray::sample(map, H, W, Z, z, cx, cy), act_exp, &dact_cell);
   ray::scatter(dmap, H, W, Z, z, cx, cy, g * prod * dact_cell);
 
-  // reverse sweep, one segment at a time from the last
-  const float gl = g * p_cell;
-  float suf = 1.f;
-  for (int sg = nseg - 1; sg >= 0; --sg) {
-    float ps[SEG], da[SEG], pref[SEG];
-    bool ins[SEG];
-    float pr = ckpt[sg];
-#pragma unroll
-    for (int j = 0; j < SEG; ++j) {
-      const int k = sg * SEG + j;
-      ins[j] = false;
-      ps[j] = 0.f;
-      da[j] = 0.f;
-      pref[j] = pr;
-      if (k < G) {
-        const float step = __ldg(steps + k);
-        const float px = ray::waypoint(rx, step);
-        const float py = ray::waypoint(ry, step);
-        if (ray::length2(px, py) < cell_len) {
-          ins[j] = true;
-          ps[j] = activate(ray::sample(map, H, W, Z, z, px, py), act_exp,
-                           &da[j]);
-          pr = __fmul_rn(pr, __fsub_rn(1.f, ps[j]));
-        }
-      }
-    }
-#pragma unroll
-    for (int j = SEG - 1; j >= 0; --j) {
-      if (!ins[j]) continue;
-      const float step = __ldg(steps + sg * SEG + j);
-      const float px = ray::waypoint(rx, step);
-      const float py = ray::waypoint(ry, step);
-      ray::scatter(dmap, H, W, Z, z, px, py, -(pref[j] * suf) * gl * da[j]);
-      suf = __fmul_rn(suf, __fsub_rn(1.f, ps[j]));
-    }
+  // walk 2: each inside waypoint's dlogit, scattered
+  const float ngl = -(g * p_cell * prod);
+  if (ngl == 0.f) return;
+  for (int k = 0; k < G; ++k) {
+    const float step = __ldg(steps + k);
+    const float px = ray::waypoint(rx, step);
+    const float py = ray::waypoint(ry, step);
+    if (!(ray::length2(px, py) < cell_len)) continue;
+    const float d =
+        dlogit(ray::sample(map, H, W, Z, z, px, py), ngl, act_exp);
+    if (d != 0.f) ray::scatter(dmap, H, W, Z, z, px, py, d);
   }
 }
 
+// One warp per (batch, cell); S lanes a listed waypoint, lane part h (of S)
+// owning bins [h CPL, (h + 1) CPL). EXP: the activation 1 - exp(-relu),
+// else sigmoid.
+template <typename T, int ZD, bool EXP>
+__global__ void __launch_bounds__(256)
+ray_first_hit_backward_vec_kernel(const T* __restrict__ occ,
+                                  const float* __restrict__ grids,
+                                  const float* __restrict__ radial,
+                                  const float* __restrict__ steps,
+                                  const float* __restrict__ gout,
+                                  float* __restrict__ docc, int B, int H,
+                                  int W, int N, int G) {
+  constexpr int CPL = 4;  // bins a lane: one float4 of the gradient row
+  constexpr int S = ZD / CPL;
+  constexpr int PER = 32 / S;  // waypoints sampled per warp step
+  __shared__ int4 corners[8][32];  // a batch's inside waypoints, per warp
+  // whether the steps ascend from zero: then the waypoints inside the
+  // cell's radius are a prefix (K3)
+  bool ascending = true;
+  for (int k = threadIdx.x; k < G; k += blockDim.x) {
+    const float s = __ldg(steps + k);
+    ascending &= k == 0 ? s >= 0.f : __ldg(steps + k - 1) <= s;
+  }
+  const bool prefix = __syncthreads_and(ascending);
+  const long long warp =
+      (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (warp >= (long long)B * N) return;  // uniform across the warp
+  const int lane = threadIdx.x & 31;
+  const int part = lane % S;
+  float gz[CPL];  // this lane's bins of g
+  {
+    const float4* gp =
+        reinterpret_cast<const float4*>(gout + warp * ZD + part * CPL);
+    bool live = false;
+#pragma unroll
+    for (int r = 0; r < CPL / 4; ++r) {
+      const float4 v = __ldg(gp + r);
+      gz[4 * r] = v.x;
+      gz[4 * r + 1] = v.y;
+      gz[4 * r + 2] = v.z;
+      gz[4 * r + 3] = v.w;
+      live |= v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f;
+    }
+    if (!__any_sync(0xffffffffu, live)) return;  // every dlogit is zero
+  }
+  const int n = (int)(warp % N);
+  const long long b = warp / N;
+  const T* map = occ + b * H * W * ZD;
+  float* drow = docc + b * H * W * ZD + part * CPL;  // the lane's bins
+  int4* batch = corners[threadIdx.x >> 5];
+  const float rx = __ldg(radial + 2 * n), ry = __ldg(radial + 2 * n + 1);
+  const float cx = __fsub_rn(__fmul_rn(__ldg(grids + 2 * n), 2.f), 1.f);
+  const float cy = __fsub_rn(__fmul_rn(__ldg(grids + 2 * n + 1), 2.f), 1.f);
+  const float cell_len = ray::length2(cx, cy);
+
+  // lists the inside waypoints of batch g0 in `batch`; -> their count,
+  // -1 where the walk may stop (none inside, a prefix)
+  auto list = [&](int g0) -> int {
+    const int g = g0 + lane;
+    bool inside = false;
+    float px = 0.f, py = 0.f;
+    if (g < G) {
+      const float step = __ldg(steps + g);
+      px = ray::waypoint(rx, step);
+      py = ray::waypoint(ry, step);
+      inside = ray::length2(px, py) < cell_len;
+    }
+    const unsigned in = __ballot_sync(0xffffffffu, inside);
+    if (!in) return prefix ? -1 : 0;
+    if (inside)  // the waypoint's place among the batch's inside ones
+      batch[__popc(in & ((1u << lane) - 1u))] = ray::corner_of(H, W, px, py);
+    __syncwarp();
+    return __popc(in);
+  };
+
+  // walk 1: P per bin
+  float acc[CPL];
+#pragma unroll
+  for (int k = 0; k < CPL; ++k) acc[k] = EXP ? 0.f : 1.f;
+  for (int g0 = 0; g0 < G; g0 += 32) {
+    const int n_in = list(g0);
+    if (n_in < 0) break;
+    for (int k = lane / S; k < n_in; k += PER) {
+      float logit[CPL];
+      ray::sample_bins<T, ZD, CPL>(map, H, W, part, batch[k], logit);
+#pragma unroll
+      for (int z = 0; z < CPL; ++z) acc[z] = accumulate(acc[z], logit[z], EXP);
+    }
+    __syncwarp();
+  }
+#pragma unroll
+  for (int off = S; off < 32; off <<= 1) {
+#pragma unroll
+    for (int k = 0; k < CPL; ++k) {
+      const float o = __shfl_xor_sync(0xffffffffu, acc[k], off);
+      acc[k] = EXP ? __fadd_rn(acc[k], o) : __fmul_rn(acc[k], o);
+    }
+  }
+
+  // the cell's own term; ngl = -g L P for walk 2
+  const int4 cell = ray::corner_of(H, W, cx, cy);
+  float ngl[CPL];
+  bool live = false;
+  {
+    float logit[CPL], dcell[CPL];
+    ray::sample_bins<T, ZD, CPL>(map, H, W, part, cell, logit);
+#pragma unroll
+    for (int k = 0; k < CPL; ++k) {
+      const float prod = product(acc[k], EXP);
+      float dact;
+      const float p = activate(logit[k], EXP, &dact);
+      dcell[k] = gz[k] * prod * dact;
+      ngl[k] = -(gz[k] * p * prod);
+      live |= ngl[k] != 0.f;
+    }
+    if (lane < S) {
+      int np[4];
+      float4 nv[4];
+      corner_rows(H, W, cell, dcell, np, nv);
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (np[c] >= 0) red4(drow + np[c] * ZD, nv[c]);
+    }
+  }
+  if (!__any_sync(0xffffffffu, live)) return;
+
+  // walk 2: each inside waypoint's dlogit, scattered. A lane group takes a
+  // run of consecutive listed waypoints, which in the presets lie a pixel
+  // apart along the ray and so share one or two corners: the group keeps
+  // the last waypoint's 4 corner rows pending, adds the next one's into
+  // those it shares, and sends the others out.
+  for (int g0 = 0; g0 < G; g0 += 32) {
+    const int n_in = list(g0);
+    if (n_in < 0) break;
+    const int run = (n_in + PER - 1) / PER;
+    const int k0 = lane / S * run, k1 = min(k0 + run, n_in);
+    int pix[4] = {-1, -1, -1, -1};  // pending rows (-1: none)
+    float4 val[4];
+    for (int k = k0; k < k1; ++k) {
+      const int4 cr = batch[k];
+      float d[CPL];
+      ray::sample_bins<T, ZD, CPL>(map, H, W, part, cr, d);
+#pragma unroll
+      for (int z = 0; z < CPL; ++z) d[z] = dlogit(d[z], ngl[z], EXP);
+      int np[4];
+      float4 nv[4];
+      corner_rows(H, W, cr, d, np, nv);
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (np[c] >= 0 && np[c] == pix[j]) {
+            nv[c] = add4(nv[c], val[j]);
+            pix[j] = -1;
+          }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (pix[j] >= 0) red4(drow + pix[j] * ZD, val[j]);
+        pix[j] = np[j];
+        val[j] = nv[j];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (pix[j] >= 0) red4(drow + pix[j] * ZD, val[j]);
+    __syncwarp();
+  }
+}
+
+// 1: the vector kernel, 0: the scalar kernel
+int route(const void* occ, const void* gout, const void* docc, int Z) {
+  return (Z == 16 || Z == 4) && (reinterpret_cast<size_t>(occ) & 15) == 0 &&
+         (reinterpret_cast<size_t>(gout) & 15) == 0 &&
+         (reinterpret_cast<size_t>(docc) & 15) == 0;
+}
+
+template <typename T>
+void launch(const void* occ, const void* grids, const void* radial,
+            const void* steps, const void* gout, void* docc, int B, int H,
+            int W, int Z, int N, int G, int act_exp, cudaStream_t st) {
+  if (route(occ, gout, docc, Z)) {
+    const unsigned blocks = (unsigned)(((long long)B * N * 32 + 255) / 256);
+    auto kernel =
+        Z == 16 ? (act_exp ? ray_first_hit_backward_vec_kernel<T, 16, true>
+                           : ray_first_hit_backward_vec_kernel<T, 16, false>)
+                : (act_exp ? ray_first_hit_backward_vec_kernel<T, 4, true>
+                           : ray_first_hit_backward_vec_kernel<T, 4, false>);
+    kernel<<<blocks, 256, 0, st>>>(
+        (const T*)occ, (const float*)grids, (const float*)radial,
+        (const float*)steps, (const float*)gout, (float*)docc, B, H, W, N,
+        G);
+    return;
+  }
+  const long long total = (long long)B * N * Z;
+  const unsigned blocks = (unsigned)((total + 255) / 256);
+  ray_first_hit_backward_kernel<T><<<blocks, 256, 0, st>>>(
+      (const T*)occ, (const float*)grids, (const float*)radial,
+      (const float*)steps, (const float*)gout, (float*)docc, B, H, W, Z, N, G,
+      act_exp);
+}
+
 }  // namespace
+
+// Which kernel ray_first_hit_backward runs for these arguments: 1 the vector
+// kernel, 0 the scalar kernel.
+extern "C" int ray_first_hit_backward_route(const void* occ, const void* gout,
+                                            const void* docc, int Z) {
+  return route(occ, gout, docc, Z);
+}
 
 // docc: f32 [B, H, W, Z], zeroed by the caller.
 extern "C" int ray_first_hit_backward(const void* occ, int occ_is_bf16,
@@ -145,22 +416,14 @@ extern "C" int ray_first_hit_backward(const void* occ, int occ_is_bf16,
                                       void* docc, int B, int H, int W, int Z,
                                       int N, int G, int act_exp,
                                       void* stream) {
-  if (G > SEG * MAX_SEG) return (int)cudaErrorInvalidValue;
-  const long long total = (long long)B * N * Z;
-  if (total == 0) return (int)cudaGetLastError();
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
+  if ((long long)B * N * Z == 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
   if (occ_is_bf16) {
-    ray_first_hit_backward_kernel<__nv_bfloat16><<<blocks, threads, 0, st>>>(
-        (const __nv_bfloat16*)occ, (const float*)grids, (const float*)radial,
-        (const float*)steps, (const float*)gout, (float*)docc, B, H, W, Z, N,
-        G, act_exp);
+    launch<__nv_bfloat16>(occ, grids, radial, steps, gout, docc, B, H, W, Z,
+                          N, G, act_exp, st);
   } else {
-    ray_first_hit_backward_kernel<float><<<blocks, threads, 0, st>>>(
-        (const float*)occ, (const float*)grids, (const float*)radial,
-        (const float*)steps, (const float*)gout, (float*)docc, B, H, W, Z, N,
-        G, act_exp);
+    launch<float>(occ, grids, radial, steps, gout, docc, B, H, W, Z, N, G,
+                  act_exp, st);
   }
   return (int)cudaGetLastError();
 }

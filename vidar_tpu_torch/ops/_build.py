@@ -51,6 +51,8 @@ SIGNATURES = {
     'dcn_sample_route': (_P, _P, _I, _I, _I, _I),
     # x (bf16), sx, sy, mask, out (bf16), B, H, W, C, Q, stream
     'dcn_sample16_forward': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, out, H, W, C, Q -> which kernel dcn_sample16_forward runs
+    'dcn_sample16_route': (_P, _P, _I, _I, _I, _I),
     # occ, occ_is_bf16, grids, radial, steps, out,
     # B, H, W, Z, N, G, act_exp, stream
     'ray_first_hit_forward': (_P, _I, _P, _P, _P, _P,
@@ -69,6 +71,8 @@ SIGNATURES = {
     # B, H, W, Z, N, G, act_exp, stream
     'ray_first_hit_backward': (_P, _I, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _P),
+    # occ, gout, docc, Z -> which kernel ray_first_hit_backward runs
+    'ray_first_hit_backward_route': (_P, _P, _P, _I),
     # fmap, fmap_is_bf16, grids, radial, steps, gout, dfmap (f32),
     # B, H, W, CT, c_r, Z, N, G, eps, stream
     'ray_aggregate_backward': (_P, _I, _P, _P, _P, _P, _P,

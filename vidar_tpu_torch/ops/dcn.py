@@ -369,12 +369,27 @@ def dcn_sample16_plain(x: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
                         for i in range(x.shape[0])])
 
 
+# dcn_sample16_route's codes
+SAMPLE16_ROUTES = {2: 'staged', 1: 'vector', 0: 'scalar'}
+
+
+def dcn_sample16_route(x: torch.Tensor, q: int) -> str:
+    """Which K10 kernel ``dcn_sample16_cuda`` runs for x [B, H, W, C] and Q
+    output pixels: 'staged' (8 x 8-pixel tiles from a window of x in shared
+    memory, where Q = H*W, as in the ResNet DCN), 'vector' (the first
+    design, 8 channels a thread, for another Q), both where C % 8 == 0 and x
+    lies on a 16-byte boundary, or 'scalar' (any other call). The wrapper's
+    output is a fresh, aligned allocation (0 stands for its address)."""
+    _, h, w, c = x.shape
+    return SAMPLE16_ROUTES[load_library().dcn_sample16_route(
+        x.data_ptr(), 0, h, w, c, q)]
+
+
 def dcn_sample16_cuda(x: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
                       mask: torch.Tensor) -> torch.Tensor:
-    """Launch K10. x [B, H, W, C] bf16 (any C), sx/sy/mask [B, Q, 9] f32,
-    all contiguous on one CUDA device -> [B, Q, 9*C] bf16. The kernel reads
-    8 channels at a time where C % 8 == 0 and x starts on a 16-byte
-    boundary, one at a time otherwise."""
+    """Launch K10. x [B, H, W, C] bf16 (any C and alignment: see
+    ``dcn_sample16_route``), sx/sy/mask [B, Q, 9] f32, all contiguous on one
+    CUDA device -> [B, Q, 9*C] bf16."""
     dev = x.device
     if not (x.is_cuda and sx.device == sy.device == mask.device == dev):
         raise ValueError('dcn_sample16_forward: all inputs must be on one '

@@ -47,7 +47,6 @@ AGGREGATE_BACKWARD = KernelCounter(
     'ray_aggregate_backward',
     source='vidar_tpu_torch/csrc/ray_aggregate_bwd.cu',
     replaces='vidar_tpu/ops/latent_render_pallas.py:334 (ray_agg_fused_bwd)')
-MAX_WAYPOINTS = 1024  # the first-hit backward's checkpoint table
 
 RAY_CHUNK = 4096  # cells per step of the plain versions
 
@@ -201,19 +200,33 @@ def _check_grad(name, g, shape, dev):
                          f'on {dev}')
 
 
+# ray_first_hit_backward_route's codes
+FIRST_HIT_BACKWARD_ROUTES = {1: 'vector', 0: 'scalar'}
+
+
+def ray_first_hit_backward_route(occ, g) -> str:
+    """Which K6/K7 kernel ``ray_first_hit_backward_cuda`` runs for the map
+    occ [B, H, W, Z] and the gradient g [B, N, Z]: 'vector' (a warp per
+    cell; Z = 16 or 4, the presets', occ and g on 16-byte boundaries) or
+    'scalar' (a thread per (cell, bin); any other Z or alignment). The
+    wrapper's d occ is a fresh, aligned allocation (0 stands for its
+    address)."""
+    return FIRST_HIT_BACKWARD_ROUTES[
+        load_library().ray_first_hit_backward_route(
+            occ.data_ptr(), g.data_ptr(), 0, occ.shape[-1])]
+
+
 def ray_first_hit_backward_cuda(occ, grids, radial_norm, steps, act: str,
                                 g):
     """Launch K6/K7: d occ [B, H, W, Z] (occ's dtype, accumulated in f32)
-    from the gradient g [B, N, Z] f32 of K3's output."""
+    from the gradient g [B, N, Z] f32 of K3's output; any Z, G and alignment
+    (see ``ray_first_hit_backward_route``)."""
     _check_geometry('ray_first_hit_backward', occ, grids, radial_norm,
                     steps)
     if act not in ('exp', 'sigmoid'):
         raise NotImplementedError(act)
     b, h, w, z = occ.shape
     n, ng = grids.shape[0], steps.shape[0]
-    if ng > MAX_WAYPOINTS:
-        raise ValueError(f'ray_first_hit_backward: {ng} waypoints > '
-                         f'{MAX_WAYPOINTS}')
     _check_grad('ray_first_hit_backward', g, (b, n, z), occ.device)
     docc = torch.zeros(b, h, w, z, dtype=torch.float32, device=occ.device)
     lib = load_library()

@@ -1,21 +1,23 @@
-"""Time K1-K5 and K9 of this checkout against other checkouts', on one
-GPU.
+"""Time K1-K6 and K8-K10 of this checkout against other checkouts', on
+one GPU.
 
     python -m vidar_tpu_torch.tools.kernel_ab --other PATH [--other PATH ...]
-        [--kernels K1 K2 K3 K4 K5 K9] [--reps N]
+        [--kernels K1 K2 K3 K4 K5 K6 K8 K9 K10] [--reps N]
 
 Each PATH is the root of another checkout of the repository, such as a git
 archive of the parent commit. Its kernels are built by its own
 ``ops/_build.py`` in a subprocess, and its library is loaded beside this
 checkout's. Both are called through their C entries (``msda_forward``,
 ``dcn_conv_forward``, ``ray_first_hit_forward``, ``ray_aggregate_forward``,
-``msda_backward``, ``dcn_sample_forward``, whose signatures the checkouts
-share) on the same inputs, in turns for each other checkout (other, this,
-this, other): CUDA events around ``--reps`` launches after a warm-up, queued
-behind a sleep kernel so that the host's launch cost does not enter a short
-kernel's time (device time). K5's value gradient is zeroed before the
-launch whose output is compared, not before the timed ones (its atomics
-then add onto the previous sums, at the same cost).
+``msda_backward``, ``ray_first_hit_backward``, ``ray_aggregate_backward``,
+``dcn_sample_forward``, ``dcn_sample16_forward``, whose signatures the
+checkouts share) on the same inputs, in turns for each other checkout
+(other, this, this, other): CUDA events around ``--reps`` launches after a
+warm-up, queued behind a sleep kernel so that the host's launch cost does
+not enter a short kernel's time (device time). The gradients of K5, K6/K7
+(``K6``) and K8 are zeroed before the launch whose output is compared, not
+before the timed ones (their atomics then add onto the previous sums, at
+the same cost).
 
 The inputs are the first of each case that the main paths give the kernels,
 at ``chip_smoke.py``'s shapes and weights:
@@ -24,16 +26,24 @@ at ``chip_smoke.py``'s shapes and weights:
   the first 1 and 24 images of those inputs, the shapes of the pre-training
   step's camera-sequential and history calls; K3 on the bf16 occupancy and
   K4 on the fused map;
-- the bf16 pre-training step (phase 5): K5 at TSA, SCA and the decoder;
+- the bf16 pre-training step (phase 5): K5 at TSA, SCA and the decoder,
+  K6/K7 and K8 on its bf16 maps;
 - the f32 full-window eval of ``vidar_finetune_1_8_nusc_3future`` (phase 6):
   K9 at stages 3 and 4 (30 images);
 - the f32 fine-tune step of the same model (phase 7): K5 at its TSA, SCA
   and detection decoder, K3 on its f32 occupancy, K4 on its f32 fused map,
-  and K9 at stages 3 and 4 on the history's 24 images (``b24``) and on one
-  camera-sequential image (``b1``).
+  K6/K7 and K8 on its f32 maps, and K9 at stages 3 and 4 on the history's
+  24 images (``b24``) and on one camera-sequential image (``b1``);
+- the bf16 forecast with a deformable conv in every ResNet stage (phase 8):
+  K10 at stage 1 (30 images, C = 64).
+K6/K7 and K8 also run each step's input with the map cast to the other
+dtype (cases ``... as f32``, ``... as bf16``), and their lines give the
+share of the upstream gradient's elements and cells (rows) that are zero:
+whether the map's dtype or the gradient's zeros set a backward's time.
 Prints the card and one JSON line: per case and other checkout, both times
 in ms and the largest difference between the two outputs (one per output;
-K9's taps must be equal, a difference of 0).
+K9's and K10's taps must be equal, a difference of 0), beside the largest
+magnitude of this checkout's output.
 """
 
 from __future__ import annotations
@@ -49,9 +59,11 @@ import torch
 
 from ..ops import _build, dcn, latent_render, msda
 
-KERNELS = ('K1', 'K2', 'K3', 'K4', 'K5', 'K9')
+KERNELS = ('K1', 'K2', 'K3', 'K4', 'K5', 'K6', 'K8', 'K9', 'K10')
 ENTRIES = ('msda_forward', 'dcn_conv_forward', 'ray_first_hit_forward',
-           'ray_aggregate_forward', 'msda_backward', 'dcn_sample_forward')
+           'ray_aggregate_forward', 'msda_backward', 'ray_first_hit_backward',
+           'ray_aggregate_backward', 'dcn_sample_forward',
+           'dcn_sample16_forward')
 # a sleep kernel of ~5 ms (at the H100's 1.98 GHz boost clock or below)
 # that outlasts the host's queueing of the timed launches
 SLEEP_CYCLES = 10_000_000
@@ -149,8 +161,30 @@ def _forecast_inputs(dev, kept, kernels):
                 for k, v in a.items()}
 
 
-def _pretrain_inputs(dev, kept):
-    """K5 cases of one bf16 pre-training step (chip_smoke.py phase 5)."""
+def _ray_backward_hooks(kept, kernels, case):
+    """Keepers of the K6/K7 and K8 inputs of a step, by ``case``."""
+    hooks = {}
+    if 'K6' in kernels:
+        hooks[latent_render.FIRST_HIT_BACKWARD] = _keeper(
+            kept, lambda a: f'K6 {case}')
+    if 'K8' in kernels:
+        hooks[latent_render.AGGREGATE_BACKWARD] = _keeper(
+            kept, lambda a: f'K8 {case}')
+    return hooks
+
+
+def _recast(kept, case, other):
+    """A copy of the kept K6/K7 or K8 case with its map cast to ``other``
+    (case ``<case> as <dtype>``)."""
+    a = kept[case]
+    key = 'occ' if 'occ' in a else 'fused_map'
+    name = {torch.float32: 'f32', torch.bfloat16: 'bf16'}[other]
+    kept[f'{case} as {name}'] = dict(a, **{key: a[key].to(other)})
+
+
+def _pretrain_inputs(dev, kept, kernels):
+    """K5, K6/K7 and K8 cases of one bf16 pre-training step (chip_smoke.py
+    phase 5)."""
     from ..configs import vidar_base
     from ..data import make_synthetic_batch
     from ..models import ViDAR
@@ -162,13 +196,18 @@ def _pretrain_inputs(dev, kept):
     step = TrainStep(model, make_optimizer(model, device=dev),
                      generator=torch.Generator(device=dev).manual_seed(3),
                      device=dev)
-    _run_hooked({msda.BACKWARD: _keeper(kept, _msda_case('K5', ',bf16'))},
-                lambda: step(batch))
+    hooks = _ray_backward_hooks(kept, kernels, 'pretrain,bf16')
+    if 'K5' in kernels:
+        hooks[msda.BACKWARD] = _keeper(kept, _msda_case('K5', ',bf16'))
+    _run_hooked(hooks, lambda: step(batch))
+    for k in ('K6', 'K8'):
+        if k in kernels:
+            _recast(kept, f'{k} pretrain,bf16', torch.float32)
 
 
 def _finetune_inputs(dev, kept, kernels):
     """K9 cases of one f32 full-window eval (chip_smoke.py phase 6), and K3,
-    K4, K5 and K9 cases of one f32 fine-tune step (phase 7)."""
+    K4, K5, K6/K7, K8 and K9 cases of one f32 fine-tune step (phase 7)."""
     from ..configs import vidar_finetune_1_8_nusc_3future
     from ..data import make_synthetic_det_batch
     from ..evals.det_runner import DetectionRunner
@@ -186,21 +225,44 @@ def _finetune_inputs(dev, kept, kernels):
     step = DetTrainStep(det, make_optimizer(det, device=dev),
                         generator=torch.Generator(device=dev).manual_seed(6),
                         device=dev)
-    _run_hooked({msda.BACKWARD: _keeper(kept, _msda_case('K5', ',f32 ft')),
-                 latent_render.FIRST_HIT: _keeper(
-                     kept, lambda a: 'K3 finetune,f32'),
-                 latent_render.AGGREGATE: _keeper(
-                     kept, lambda a: 'K4 finetune,f32'),
-                 dcn.SAMPLE: _keeper(kept, lambda a: _dcn_case('K9', a,
-                                                               (1, 24)))},
-                lambda: step(batch))
+    hooks = _ray_backward_hooks(kept, kernels, 'finetune,f32')
+    hooks.update({msda.BACKWARD: _keeper(kept, _msda_case('K5', ',f32 ft')),
+                  latent_render.FIRST_HIT: _keeper(
+                      kept, lambda a: 'K3 finetune,f32'),
+                  latent_render.AGGREGATE: _keeper(
+                      kept, lambda a: 'K4 finetune,f32'),
+                  dcn.SAMPLE: _keeper(kept, lambda a: _dcn_case('K9', a,
+                                                                (1, 24)))})
+    _run_hooked(hooks, lambda: step(batch))
+    for k in ('K6', 'K8'):
+        if k in kernels:
+            _recast(kept, f'{k} finetune,f32', torch.bfloat16)
+
+
+def _all_dcn_inputs(dev, kept):
+    """The K10 case of one bf16 forecast with a deformable conv in every
+    ResNet stage (chip_smoke.py phase 8): stage 1, C = 64."""
+    from ..configs import vidar_base
+    from ..data import make_synthetic_batch
+    from ..evals.forecast_runner import ForecastRunner
+    from ..models import ViDAR
+    cfg = vidar_base(backbone_dcn=(True,) * 4)
+    model = ViDAR(**cfg, dtype=torch.bfloat16, device=dev).eval()
+    model.randomize_(torch.Generator(device=dev).manual_seed(7), 0.02)
+    batch = make_synthetic_batch(np.random.default_rng(0), future_length=6,
+                                 max_points=32768, device=dev, **BATCH)
+    _run_hooked({dcn.SAMPLE16: _keeper(
+        kept, lambda a: 'K10 stage1' if a['x'].shape[-1] == 64 else None)},
+        lambda: ForecastRunner(model, (928, 1600), num_future=6,
+                               device=dev)(batch))
 
 
 def _launcher(lib, case, a, dev):
     """-> (launch function, reset function, output tensors) for one kept
     case."""
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if case.startswith(('K1', 'K5')):
+    kind = case.split()[0]
+    if kind in ('K1', 'K5'):
         v, loc, w = a['value'], a['loc'], a['weights']
         b, v_len, heads, dim = v.shape
         _, q, _, levels, p, _ = loc.shape
@@ -209,7 +271,7 @@ def _launcher(lib, case, a, dev):
                 shapes.data_ptr(), starts.data_ptr(), loc.data_ptr(),
                 w.data_ptr())
         tail = (b, v_len, q, heads, dim, levels, p, stream)
-        if case.startswith('K1'):
+        if kind == 'K1':
             out = torch.empty(b, q, heads * dim, device=dev)
             args = head + (out.data_ptr(),) + tail
             return (lambda: _build.check(lib.msda_forward(*args), case),
@@ -220,7 +282,7 @@ def _launcher(lib, case, a, dev):
             t.data_ptr() for t in outs) + tail
         return (lambda: _build.check(lib.msda_backward(*args), case),
                 outs[0].zero_, outs)
-    if case.startswith('K3'):
+    if kind == 'K3':
         occ = a['occ']
         b, h, w_, z = occ.shape
         n, g = a['grids'].shape[0], a['steps'].shape[0]
@@ -231,16 +293,44 @@ def _launcher(lib, case, a, dev):
                 int(a['act'] == 'exp'), stream)
         return (lambda: _build.check(lib.ray_first_hit_forward(*args), case),
                 lambda: None, [out])
-    if case.startswith('K9'):
+    if kind == 'K6':
+        occ, g = a['occ'], a['g']
+        b, h, w_, z = occ.shape
+        n, ng = a['grids'].shape[0], a['steps'].shape[0]
+        out = torch.zeros(b, h, w_, z, device=dev)
+        args = (occ.data_ptr(), int(occ.dtype == torch.bfloat16),
+                a['grids'].data_ptr(), a['radial_norm'].data_ptr(),
+                a['steps'].data_ptr(), g.data_ptr(), out.data_ptr(), b, h, w_,
+                z, n, ng, int(a['act'] == 'exp'), stream)
+        return (lambda: _build.check(lib.ray_first_hit_backward(*args), case),
+                out.zero_, [out])
+    if kind == 'K8':
+        fm, g = a['fused_map'], a['g']
+        b, h, w_, ct = fm.shape
+        n, ng = a['grids'].shape[0], a['steps'].shape[0]
+        out = torch.zeros(b, h, w_, ct, device=dev)
+        args = (fm.data_ptr(), int(fm.dtype == torch.bfloat16),
+                a['grids'].data_ptr(), a['radial_norm'].data_ptr(),
+                a['steps'].data_ptr(), g.data_ptr(), out.data_ptr(), b, h, w_,
+                ct, a['c_r'], a['zdim'], n, ng, float(a['eps']), stream)
+        return (lambda: _build.check(lib.ray_aggregate_backward(*args), case),
+                out.zero_, [out])
+    if kind in ('K9', 'K10'):
         x = a['x']
         b, h, w_, c = x.shape
         q = a['sx'].shape[1]
-        out = torch.empty(b, q, dcn.TAPS, c, device=dev)
+        if kind == 'K9':
+            out = torch.empty(b, q, dcn.TAPS, c, device=dev)
+            entry = lib.dcn_sample_forward
+        else:
+            out = torch.empty(b, q, dcn.TAPS * c, dtype=torch.bfloat16,
+                              device=dev)
+            entry = lib.dcn_sample16_forward
         args = (x.data_ptr(), a['sx'].data_ptr(), a['sy'].data_ptr(),
                 a['mask'].data_ptr(), out.data_ptr(), b, h, w_, c, q, stream)
-        return (lambda: _build.check(lib.dcn_sample_forward(*args), case),
-                lambda: None, [out])
-    if case.startswith('K4'):
+        return (lambda: _build.check(entry(*args), case), lambda: None,
+                [out])
+    if kind == 'K4':
         fm = a['fused_map']
         b, h, w_, ct = fm.shape
         n, g = a['grids'].shape[0], a['steps'].shape[0]
@@ -305,10 +395,12 @@ def main(argv=None) -> int:
     kept = {}
     if {'K1', 'K2', 'K3', 'K4'} & set(args.kernels):
         _forecast_inputs(dev, kept, args.kernels)
-    if 'K5' in args.kernels:
-        _pretrain_inputs(dev, kept)
-    if {'K3', 'K4', 'K5', 'K9'} & set(args.kernels):
+    if {'K5', 'K6', 'K8'} & set(args.kernels):
+        _pretrain_inputs(dev, kept, args.kernels)
+    if {'K3', 'K4', 'K5', 'K6', 'K8', 'K9'} & set(args.kernels):
         _finetune_inputs(dev, kept, args.kernels)
+    if 'K10' in args.kernels:
+        _all_dcn_inputs(dev, kept)
     torch.cuda.empty_cache()
     results = {}
     for case, a in sorted(kept.items()):
@@ -316,7 +408,15 @@ def main(argv=None) -> int:
             continue
         run_this, reset_this, out_this = _launcher(this, case, a, dev)
         want = _outputs(run_this, reset_this, out_this)
+        scale = [w.abs().max().item() for w in want]
         results[case] = {}
+        if 'g' in a:  # a backward's upstream gradient: its zeros
+            zero = a['g'] == 0
+            share = dict(elements=zero.float().mean().item(),
+                         rows=zero.all(-1).float().mean().item())
+            results[case]['g_zero_share'] = share
+            print(f'{case}: g == 0 in {share["elements"]:.4f} of its '
+                  f'elements, {share["rows"]:.4f} of its rows', flush=True)
         for root, lib in others.items():
             run_other, reset_other, out_other = _launcher(lib, case, a, dev)
             t = [_time_ms(f, args.reps)
@@ -325,10 +425,11 @@ def main(argv=None) -> int:
             diff = [(x - y).abs().max().item() for x, y in zip(want, got)]
             results[case][root] = dict(other_ms=(t[0] + t[3]) / 2,
                                        this_ms=(t[1] + t[2]) / 2,
-                                       max_abs_diff=diff)
+                                       max_abs_diff=diff, max_abs=scale)
             print(f'{case} vs {root}: other {t[0]:.4f} {t[3]:.4f} ms, this '
                   f'{t[1]:.4f} {t[2]:.4f} ms, max |this - other| '
-                  f'{" ".join(f"{d:.3g}" for d in diff)}', flush=True)
+                  f'{" ".join(f"{d:.3g}" for d in diff)} (max |this| '
+                  f'{" ".join(f"{m:.3g}" for m in scale)})', flush=True)
             del got, out_other
         del want, out_this
     print(json.dumps({'card': card, 'cases': results}))
