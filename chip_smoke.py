@@ -15,8 +15,8 @@ it drives; a kernel of the path that never launched fails the run:
    and the TF32 switches, set explicitly (off);
 1. the build of the CUDA kernels from ``vidar_tpu_torch/csrc`` (K1-K4, the
    backwards K5, K6/K7, K8, K9 and K10), K2's ``wgmma`` instructions and
-   K5's and K6/K7's vector f32 reductions counted in ``cuobjdump -sass`` of
-   the build;
+   K5's, K6/K7's and K8's vector f32 reductions counted in ``cuobjdump
+   -sass`` of the build;
 2. one full forecast of ``vidar_base`` in bf16 at the nuScenes shapes of
    bench.py (bs 1, 4+1 frames, 6 cameras, 928x1600, 6 futures, 32768 rays),
    random weights (N(0, 1) x 0.02 from a seeded generator), through
@@ -28,13 +28,14 @@ it drives; a kernel of the path that never launched fails the run:
    the bytes the function must move over 3.35 TB/s and its floating-point
    operations over the card's peak rate for their type, with the share of
    it each kernel reaches (bound / time); the kernel that each K3, K6/K7,
-   K9 and K10 case ran (its ``path`` in the JSON line:
+   K8, K9 and K10 case ran (its ``path`` in the JSON line:
    ``ray_first_hit_route``'s vector or first design,
-   ``ray_first_hit_backward_route``'s vector or scalar,
+   ``ray_first_hit_backward_route``'s and
+   ``ray_aggregate_backward_route``'s vector or scalar,
    ``dcn_sample_route``'s staged or scalar, ``dcn_sample16_route``'s
-   staged, vector or scalar), and the device-only time of K6/K7, K9 and K10
-   (``device_ms``: launches queued behind a sleep kernel) beside the
-   wrapper-inclusive one;
+   staged, vector or scalar), and the device-only time of K6/K7, K8, K9
+   and K10 (``device_ms``: launches queued behind a sleep kernel) beside
+   the wrapper-inclusive one;
 4. a second, timed forecast: seconds, samples/s, peak device memory (the
    forecast's own: the train model does not exist yet);
 5. the first (warm-up) pre-training step of ``vidar_base`` at full width
@@ -284,17 +285,17 @@ def _dcn_valid_taps(sx, sy, h, w):
 
 
 def _ray_counts(grids, radial_norm, steps):
-    """(inside, valid): the (cell, waypoint) pairs the first-hit pass
-    samples (strictly closer to the centre than the cell) and those the
-    aggregation samples (inside the boundary square), from this run's
+    """(inside, valid), each [N]: per cell, the waypoints the first-hit
+    pass samples (strictly closer to the centre than the cell) and those
+    the aggregation samples (inside the boundary square), from this run's
     geometry."""
     way = (0.5 + radial_norm[:, None, :] * steps[None, :, None]) * 2.0 - 1.0
     length = torch.sqrt((way ** 2).sum(-1))
     cell = torch.sqrt(((grids * 2.0 - 1.0) ** 2).sum(-1))
     boundary = torch.minimum(1.0 / radial_norm[:, 0].abs(),
                              1.0 / radial_norm[:, 1].abs())
-    return (int((length < cell[:, None]).sum()),
-            int((length < boundary[:, None]).sum()))
+    return ((length < cell[:, None]).sum(-1).double(),
+            (length < boundary[:, None]).sum(-1).double())
 
 
 def _bound(nbytes, flops):
@@ -365,42 +366,57 @@ def _cost(name, a, out_bytes):
                  'f32': taps * (F['corners'] + x.shape[-1] * (F['lerp'] + 1))})
     geo = (a['grids'], a['radial_norm'], a['steps'])
     inside, valid = _ray_counts(*geo)
-    n, steps = a['grids'].shape[0], a['steps'].shape[0]
-    path = n * steps * F['geo']
+    steps = a['steps'].shape[0]
     if name.startswith('ray_first_hit'):
         occ = a['occ']
-        bz = occ.shape[0] * occ.shape[-1]
-        points = inside + n          # the inside waypoints and the cell
-        shared = path + points * F['corners']
+        points = inside + 1          # the inside waypoints and the cell
         if name == 'ray_first_hit_forward':
-            # per (point, bin): sample, activation, 1 - p and the product
+            # per cell: the path's geometry, each point's corners; per
+            # (point, bin): sample, activation, 1 - p and the product
+            bz = occ.shape[0] * occ.shape[-1]
             return (_nbytes(occ, *geo) + out_bytes,
-                    {'f32': shared + bz * points *
-                     (F['lerp'] + F['act'] + 2)})
-        # per (point, bin): sample, activation and slope once, 1 - p, the
-        # prefix and suffix products, dlogit (3 products) and its scatter
+                    {'f32': float(points.numel() * steps * F['geo'] +
+                                  points.sum() * (F['corners'] + bz * (
+                                      F['lerp'] + F['act'] + 2)))})
+        # only the bins with g != 0 send a gradient: per cell with one, the
+        # geometry as forward; per (point, such bin): sample, activation
+        # and slope once, 1 - p, the prefix and suffix products, dlogit (3
+        # products) and its scatter
+        live = (a['g'] != 0).sum(0).double()                     # [N, Z]
+        cells = live.sum(-1) > 0
         return (_nbytes(occ, a['g'], *geo) + out_bytes,
-                {'f32': shared + bz * points *
-                 (F['lerp'] + F['act'] + F['dact'] + 6 + F['scatter'])})
+                {'f32': float(cells.sum() * steps * F['geo'] +
+                              (cells * points).sum() * F['corners'] +
+                              (live.sum(-1) * points).sum() *
+                              (F['lerp'] + F['act'] + F['dact'] + 6 +
+                               F['scatter']))})
     fmap = a['fused_map']
     b, c_r, zdim = fmap.shape[0], a['c_r'], a['zdim']
-    shared = path + valid * F['corners']
+    n = valid.numel()
     if name == 'ray_aggregate_forward':
-        # per (valid waypoint, feature): sample and an FMA into num; per
+        # per cell: the path's geometry, each valid waypoint's corners; per
+        # (valid waypoint, feature): sample and an FMA into num; per
         # (valid waypoint, bin): sample and an add into den; per output: an
         # add and a division
         return (_nbytes(fmap, *geo) + out_bytes,
-                {'f32': shared + b * valid * (c_r * (F['lerp'] + 2) +
-                                              zdim * (F['lerp'] + 1))
-                 + b * n * c_r * 2})
-    # (num, den) kept from the forward. Per output: dnum and dden (5); per
-    # (valid waypoint, feature): f once, dnum * p and its scatter,
-    # dnum * f + dden (an FMA); per (valid waypoint, bin): p once and the
-    # scatter of the bin's sum
+                {'f32': float(n * steps * F['geo'] + valid.sum() * (
+                    F['corners'] + b * (c_r * (F['lerp'] + 2) +
+                                        zdim * (F['lerp'] + 1)))
+                    + b * n * c_r * 2)})
+    # only the cells with g != 0 send a gradient. Per such cell: the
+    # geometry as forward; (num, den) kept from the forward; per output:
+    # dnum and dden (5); per (valid waypoint, feature): f once, dnum * p and
+    # its scatter, dnum * f + dden (an FMA); per (valid waypoint, bin): p
+    # once and the scatter of the bin's sum
+    live = (a['g'] != 0).any(-1).sum(0).double()                 # [N]
+    cells = live > 0
     return (_nbytes(fmap, a['g'], *geo) + out_bytes,
-            {'f32': shared + b * valid * (c_r * (F['lerp'] + 3 + F['scatter'])
-                                          + zdim * (F['lerp'] + F['scatter']))
-             + b * n * c_r * 5})
+            {'f32': float(cells.sum() * steps * F['geo'] +
+                          (cells * valid).sum() * F['corners'] +
+                          (live * valid).sum() * (
+                              c_r * (F['lerp'] + 3 + F['scatter']) +
+                              zdim * (F['lerp'] + F['scatter'])) +
+                          live.sum() * c_r * 5)})
 
 
 def _window(det_batch, end):
@@ -626,10 +642,12 @@ def main() -> int:
           f'(dcn_conv_kernel)', flush=True)
     if not hgmma:
         raise RuntimeError('K2 was built without wgmma')
-    # K5 scatters 4 channels an instruction, K6/K7's vector kernel 4 bins:
-    # Hopper's vector f32 reductions (red.global.add.v4.f32)
+    # K5 scatters 4 channels an instruction, K6/K7's and K8's vector
+    # kernels 4 bins or channels: Hopper's vector f32 reductions
+    # (red.global.add.v4.f32)
     for label, fn in (('K5', 'msda_backward_vec_kernel'),
-                      ('K6/K7', 'ray_first_hit_backward_vec_kernel')):
+                      ('K6/K7', 'ray_first_hit_backward_vec_kernel'),
+                      ('K8', 'ray_aggregate_backward_vec_kernel')):
         red4 = [line.strip() for chunk in sass.split(fn)[1:]
                 for line in chunk.split('Function :')[0].splitlines()
                 if ('RED' in line or 'ATOM' in line) and 'F32x4' in line]
@@ -927,12 +945,21 @@ def main() -> int:
         b = kept[latent_render.AGGREGATE_BACKWARD.name].inputs[render_case]
         geo_b = (b['grids'], b['radial_norm'], b['steps'])
         rest = (b['c_r'], b['zdim'], b['eps'])
+
+        def aggregate_backward():
+            return (latent_render.ray_aggregate_backward_cuda(
+                b['fused_map'], *geo_b, *rest, b['g']),)
         oks.append(compare_backward(
             latent_render.AGGREGATE_BACKWARD, render_case, b,
-            lambda: (latent_render.ray_aggregate_backward_cuda(
-                b['fused_map'], *geo_b, *rest, b['g']),),
+            aggregate_backward,
             lambda fm: latent_render.ray_aggregate_plain(fm, *geo_b, *rest),
             (b['fused_map'],), n))
+        # the kernel K8 ran, and its device time with the wrapper's zeroing
+        # (and, for a bf16 map, the cast to bf16)
+        record_path(latent_render.AGGREGATE_BACKWARD, render_case,
+                    latent_render.ray_aggregate_backward_route(
+                        b['fused_map'], b['g']),
+                    aggregate_backward)
         return oks
 
     oks = compare_backwards(keepers, 'encoder', train_launches)

@@ -824,13 +824,18 @@ def test_first_hit_backward_kernel_matches_plain(dev, act, dtype):
 _FIRST_HIT_BWD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 4e-3}
 
 
+def _shifted(t):
+    """A copy of t in a view off a 16-byte boundary."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    out = out.view(t.shape).copy_(t)
+    assert out.data_ptr() % 16
+    return out
+
+
 def _check_first_hit_backward(occ, geo, act, g, routes):
     """K6/K7 on occ and on a view of it off a 16-byte boundary, against
     autograd of ``ray_first_hit_plain``; ``routes`` the kernels they take."""
-    shifted = torch.empty(occ.numel() + 1, dtype=occ.dtype,
-                          device=occ.device)[1:]
-    shifted = shifted.view(occ.shape).copy_(occ)
-    assert shifted.data_ptr() % 16
+    shifted = _shifted(occ)
     (want,) = _plain_grads(
         lambda o: latent_render.ray_first_hit_plain(o, *geo, act), (occ,), g)
     before = latent_render.FIRST_HIT_BACKWARD.launches
@@ -899,26 +904,106 @@ def test_first_hit_backward_kernel_any_step_order(dev, dtype, act):
                               ('vector', 'scalar'))
 
 
-@pytest.mark.parametrize('c_r,z', [(16, 16), (8, 4)])
+def _aggregate_map(rng, b, h, w, c_r, z, dtype, dev):
+    """Features N(0, 1) and probabilities U(0, 1), as K4's tests."""
+    return _t(np.concatenate([rng.standard_normal((b, h, w, c_r)),
+                              rng.uniform(0, 1, (b, h, w, z))], -1), dev,
+              dtype)
+
+
+def _check_aggregate_backward(fmap, geo, c_r, z, g, route):
+    """K8 on (fmap, g), which take ``route``, and with either one in a view
+    off a 16-byte boundary, which take the scalar kernel, against autograd
+    of ``ray_aggregate_plain`` (relative to the largest element: f32 atomic
+    sums in another order; a bf16 gradient is also rounded once to bf16,
+    2^-9 relative)."""
+    (want,) = _plain_grads(
+        lambda f: latent_render.ray_aggregate_plain(f, *geo, c_r, z, 1e-3),
+        (fmap,), g)
+    tol = 1e-2 if fmap.dtype == torch.bfloat16 else 1e-4
+    before = latent_render.AGGREGATE_BACKWARD.launches
+    for fm, gg, r in ((fmap, g, route), (_shifted(fmap), g, 'scalar'),
+                      (fmap, _shifted(g), 'scalar')):
+        assert latent_render.ray_aggregate_backward_route(fm, gg) == r
+        got = latent_render.ray_aggregate_backward_cuda(fm, *geo, c_r, z,
+                                                        1e-3, gg)
+        torch.cuda.synchronize()
+        assert got.dtype == fmap.dtype and got.shape == fmap.shape
+        assert bool(torch.isfinite(got).all())
+        err = _rel_err(got, want)
+        assert err <= tol, (r, err)
+    assert latent_render.AGGREGATE_BACKWARD.launches == before + 3
+
+
+@pytest.mark.parametrize('c_r,z', [(16, 16), (8, 4), (4, 4)])
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
 def test_aggregate_backward_kernel_matches_plain(dev, c_r, z, dtype):
+    """K8 on both kernels: the presets' (16, 16) and (4, 4) take the vector
+    one, group size 2 ((8, 4)) the scalar one, as every misaligned map or
+    gradient does."""
     rng = np.random.default_rng(6)
     h = w = 60
-    fmap = _t(np.concatenate([rng.standard_normal((1, h, w, c_r)),
-                              rng.uniform(0, 1, (1, h, w, z))], -1), dev,
-              dtype)
-    grids, rn, steps = _geometry(h, w, 64, dev)
+    fmap = _aggregate_map(rng, 1, h, w, c_r, z, dtype, dev)
     g = _t(rng.standard_normal((1, h * w, c_r)), dev)
-    before = latent_render.AGGREGATE_BACKWARD.launches
-    got = latent_render.ray_aggregate_backward_cuda(fmap, grids, rn, steps,
-                                                    c_r, z, 1e-3, g)
-    (want,) = _plain_grads(
-        lambda f: latent_render.ray_aggregate_plain(f, grids, rn, steps, c_r,
-                                                    z, 1e-3), (fmap,), g)
-    torch.cuda.synchronize()
-    assert latent_render.AGGREGATE_BACKWARD.launches == before + 1
-    tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
-    assert _rel_err(got, want) <= tol
+    route = 'scalar' if c_r != z else 'vector'
+    _check_aggregate_backward(fmap, _geometry(h, w, 64, dev), c_r, z, g,
+                              route)
+
+
+@pytest.mark.parametrize('c_r,z', [(16, 16), (4, 4)])
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_aggregate_backward_kernel_routes_match_plain(dev, dtype, c_r, z):
+    """K8 at the presets' geometry (200 x 200 cells, G = 256, a batch of 2)
+    with g zero in every third cell and in scattered channels: the vector
+    kernel skips the zero cells."""
+    rng = np.random.default_rng(28)
+    h = w = 200
+    fmap = _aggregate_map(rng, 2, h, w, c_r, z, dtype, dev)
+    g = rng.standard_normal((2, h * w, c_r))
+    g[:, ::3] = 0.0
+    g[rng.uniform(size=g.shape) < 0.2] = 0.0
+    _check_aggregate_backward(fmap, _geometry(h, w, 256, dev), c_r, z,
+                              _t(g, dev), 'vector')
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_aggregate_backward_kernel_mostly_zero_cells(dev, dtype):
+    """g zero in all but 1% of the cells, as on the fine-tune step: the
+    skipped cells send nothing, the others their full gradient."""
+    rng = np.random.default_rng(29)
+    h = w = 100
+    fmap = _aggregate_map(rng, 1, h, w, 16, 16, dtype, dev)
+    g = rng.standard_normal((1, h * w, 16))
+    g[:, rng.uniform(size=h * w) >= 0.01] = 0.0
+    _check_aggregate_backward(fmap, _geometry(h, w, 256, dev), 16, 16,
+                              _t(g, dev), 'vector')
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_aggregate_backward_kernel_any_waypoint_count(dev, dtype):
+    """G = 1100 waypoints, 0.04 px apart on a 64 x 64 map, so every cell
+    lists over 32 batches of them; both kernels."""
+    from vidar_tpu_torch.models.latent_rendering import ray_geometry
+    rng = np.random.default_rng(30)
+    h = w = 64
+    fmap = _aggregate_map(rng, 1, h, w, 16, 16, dtype, dev)
+    geo = ray_geometry(h, w, 1100, 0.02, dev)
+    g = _t(rng.standard_normal((1, h * w, 16)), dev)
+    _check_aggregate_backward(fmap, geo, 16, 16, g, 'vector')
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_aggregate_backward_kernel_any_step_order(dev, dtype):
+    """The vector K8 stops its walks at the first batch of waypoints
+    outside the boundary square only when the steps ascend from zero;
+    shuffled steps walk every waypoint, on both kernels."""
+    rng = np.random.default_rng(31)
+    h = w = 60
+    fmap = _aggregate_map(rng, 1, h, w, 16, 16, dtype, dev)
+    grids, rn, steps = _geometry(h, w, 150, dev)
+    steps = steps[torch.from_numpy(rng.permutation(150)).to(dev)]
+    g = _t(rng.standard_normal((1, h * w, 16)), dev)
+    _check_aggregate_backward(fmap, (grids, rn, steps), 16, 16, g, 'vector')
 
 
 def test_train_path_uses_the_backward_kernels(dev):

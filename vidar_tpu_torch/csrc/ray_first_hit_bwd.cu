@@ -118,37 +118,6 @@ __device__ __forceinline__ float dlogit(float l, float ngl, bool act_exp) {
                  : ngl * __fdividef(1.f, 1.f + expf(-l));
 }
 
-__device__ __forceinline__ float4 add4(float4 a, float4 b) {
-  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
-}
-
-// row[0:4] += v with one vector f32 reduction (red.global.add.v4.f32),
-// skipped for 4 zeros
-__device__ __forceinline__ void red4(float* row, float4 v) {
-  if (v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f)
-    atomicAdd(reinterpret_cast<float4*>(row), v);
-}
-
-// The 4 corner rows of sample corner cr (pixel index, -1 off the map) and
-// d times each one's bilinear weight.
-__device__ __forceinline__ void corner_rows(int H, int W, int4 cr,
-                                            const float (&d)[4], int (&np)[4],
-                                            float4 (&nv)[4]) {
-#pragma unroll
-  for (int c = 0; c < 4; ++c) np[c] = -1;
-  if (cr.x == ray::OFF_MAP) return;
-  const float wx1 = __int_as_float(cr.z), wy1 = __int_as_float(cr.w);
-  const float wx[2] = {__fsub_rn(1.f, wx1), wx1};
-  const float wy[2] = {__fsub_rn(1.f, wy1), wy1};
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int iy = cr.y + (c >> 1), ix = cr.x + (c & 1);
-    const float w = __fmul_rn(wy[c >> 1], wx[c & 1]);
-    if (iy >= 0 && iy < H && ix >= 0 && ix < W) np[c] = iy * W + ix;
-    nv[c] = make_float4(d[0] * w, d[1] * w, d[2] * w, d[3] * w);
-  }
-}
-
 // The scalar kernel: one thread per (batch, cell, bin), the bin fastest.
 template <typename T>
 __global__ void ray_first_hit_backward_kernel(
@@ -254,32 +223,13 @@ ray_first_hit_backward_vec_kernel(const T* __restrict__ occ,
   const float cy = __fsub_rn(__fmul_rn(__ldg(grids + 2 * n + 1), 2.f), 1.f);
   const float cell_len = ray::length2(cx, cy);
 
-  // lists the inside waypoints of batch g0 in `batch`; -> their count,
-  // -1 where the walk may stop (none inside, a prefix)
-  auto list = [&](int g0) -> int {
-    const int g = g0 + lane;
-    bool inside = false;
-    float px = 0.f, py = 0.f;
-    if (g < G) {
-      const float step = __ldg(steps + g);
-      px = ray::waypoint(rx, step);
-      py = ray::waypoint(ry, step);
-      inside = ray::length2(px, py) < cell_len;
-    }
-    const unsigned in = __ballot_sync(0xffffffffu, inside);
-    if (!in) return prefix ? -1 : 0;
-    if (inside)  // the waypoint's place among the batch's inside ones
-      batch[__popc(in & ((1u << lane) - 1u))] = ray::corner_of(H, W, px, py);
-    __syncwarp();
-    return __popc(in);
-  };
-
   // walk 1: P per bin
   float acc[CPL];
 #pragma unroll
   for (int k = 0; k < CPL; ++k) acc[k] = EXP ? 0.f : 1.f;
   for (int g0 = 0; g0 < G; g0 += 32) {
-    const int n_in = list(g0);
+    const int n_in = ray::list_inside(batch, steps, g0, G, lane, rx, ry,
+                                      cell_len, H, W, prefix);
     if (n_in < 0) break;
     for (int k = lane / S; k < n_in; k += PER) {
       float logit[CPL];
@@ -303,67 +253,50 @@ ray_first_hit_backward_vec_kernel(const T* __restrict__ occ,
   float ngl[CPL];
   bool live = false;
   {
-    float logit[CPL], dcell[CPL];
+    float logit[CPL], dcell[1][CPL];
     ray::sample_bins<T, ZD, CPL>(map, H, W, part, cell, logit);
 #pragma unroll
     for (int k = 0; k < CPL; ++k) {
       const float prod = product(acc[k], EXP);
       float dact;
       const float p = activate(logit[k], EXP, &dact);
-      dcell[k] = gz[k] * prod * dact;
+      dcell[0][k] = gz[k] * prod * dact;
       ngl[k] = -(gz[k] * p * prod);
       live |= ngl[k] != 0.f;
     }
     if (lane < S) {
       int np[4];
-      float4 nv[4];
-      corner_rows(H, W, cell, dcell, np, nv);
+      float4 nv[4][1];
+      ray::corner_rows(H, W, cell, dcell, np, nv);
 #pragma unroll
       for (int c = 0; c < 4; ++c)
-        if (np[c] >= 0) red4(drow + np[c] * ZD, nv[c]);
+        if (np[c] >= 0) ray::red4(drow + np[c] * ZD, nv[c][0]);
     }
   }
   if (!__any_sync(0xffffffffu, live)) return;
 
-  // walk 2: each inside waypoint's dlogit, scattered. A lane group takes a
-  // run of consecutive listed waypoints, which in the presets lie a pixel
-  // apart along the ray and so share one or two corners: the group keeps
-  // the last waypoint's 4 corner rows pending, adds the next one's into
-  // those it shares, and sends the others out.
+  // walk 2: each inside waypoint's dlogit, scattered; a lane group takes a
+  // run of consecutive listed waypoints and merges the corner rows they
+  // share (ray::PendingRows)
   for (int g0 = 0; g0 < G; g0 += 32) {
-    const int n_in = list(g0);
+    const int n_in = ray::list_inside(batch, steps, g0, G, lane, rx, ry,
+                                      cell_len, H, W, prefix);
     if (n_in < 0) break;
     const int run = (n_in + PER - 1) / PER;
     const int k0 = lane / S * run, k1 = min(k0 + run, n_in);
-    int pix[4] = {-1, -1, -1, -1};  // pending rows (-1: none)
-    float4 val[4];
+    ray::PendingRows<ZD, 1, 0> rows;
     for (int k = k0; k < k1; ++k) {
       const int4 cr = batch[k];
-      float d[CPL];
-      ray::sample_bins<T, ZD, CPL>(map, H, W, part, cr, d);
+      float d[1][CPL];
+      ray::sample_bins<T, ZD, CPL>(map, H, W, part, cr, d[0]);
 #pragma unroll
-      for (int z = 0; z < CPL; ++z) d[z] = dlogit(d[z], ngl[z], EXP);
+      for (int z = 0; z < CPL; ++z) d[0][z] = dlogit(d[0][z], ngl[z], EXP);
       int np[4];
-      float4 nv[4];
-      corner_rows(H, W, cr, d, np, nv);
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (np[c] >= 0 && np[c] == pix[j]) {
-            nv[c] = add4(nv[c], val[j]);
-            pix[j] = -1;
-          }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (pix[j] >= 0) red4(drow + pix[j] * ZD, val[j]);
-        pix[j] = np[j];
-        val[j] = nv[j];
-      }
+      float4 nv[4][1];
+      ray::corner_rows(H, W, cr, d, np, nv);
+      rows.push(drow, np, nv);
     }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (pix[j] >= 0) red4(drow + pix[j] * ZD, val[j]);
+    rows.flush(drow);
     __syncwarp();
   }
 }

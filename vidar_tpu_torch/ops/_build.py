@@ -77,6 +77,8 @@ SIGNATURES = {
     # B, H, W, CT, c_r, Z, N, G, eps, stream
     'ray_aggregate_backward': (_P, _I, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    # fmap, gout, dfmap, c_r, Z -> which kernel ray_aggregate_backward runs
+    'ray_aggregate_backward_route': (_P, _P, _P, _I, _I),
 }
 
 _lock = threading.Lock()

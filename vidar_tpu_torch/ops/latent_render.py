@@ -243,11 +243,29 @@ def ray_first_hit_backward_cuda(occ, grids, radial_norm, steps, act: str,
     return docc.to(occ.dtype)
 
 
+# ray_aggregate_backward_route's codes
+AGGREGATE_BACKWARD_ROUTES = {1: 'vector', 0: 'scalar'}
+
+
+def ray_aggregate_backward_route(fused_map, g) -> str:
+    """Which K8 kernel ``ray_aggregate_backward_cuda`` runs for the map
+    fused_map [B, H, W, c_r + Z] and the gradient g [B, N, c_r]: 'vector' (a
+    warp per cell; (c_r, Z) = (16, 16) or (4, 4), the presets', the map and
+    g on 16-byte boundaries) or 'scalar' (a thread per (cell, feature
+    channel); any other (c_r, Z) or alignment). The wrapper's d fused_map
+    is a fresh, aligned allocation (0 stands for its address)."""
+    c_r = g.shape[-1]
+    return AGGREGATE_BACKWARD_ROUTES[
+        load_library().ray_aggregate_backward_route(
+            fused_map.data_ptr(), g.data_ptr(), 0, c_r,
+            fused_map.shape[-1] - c_r)]
+
+
 def ray_aggregate_backward_cuda(fused_map, grids, radial_norm, steps,
                                 c_r: int, zdim: int, eps: float, g):
     """Launch K8: d fused_map [B, H, W, c_r + Z] (the map's dtype,
-    accumulated in f32) from the gradient g [B, N, c_r] f32 of K4's
-    output."""
+    accumulated in f32) from the gradient g [B, N, c_r] f32 of K4's output;
+    any (c_r, Z), G and alignment (see ``ray_aggregate_backward_route``)."""
     _check_geometry('ray_aggregate_backward', fused_map, grids, radial_norm,
                     steps)
     b, h, w, ct = fused_map.shape

@@ -40,6 +40,9 @@ K6/K7 and K8 also run each step's input with the map cast to the other
 dtype (cases ``... as f32``, ``... as bf16``), and their lines give the
 share of the upstream gradient's elements and cells (rows) that are zero:
 whether the map's dtype or the gradient's zeros set a backward's time.
+K8's lines also count, from the case's geometry and g, the valid
+waypoints a cell and the float4 reductions of the vector kernel's scatter
+before and after it merges the corner rows neighbouring waypoints share.
 Prints the card and one JSON line: per case and other checkout, both times
 in ms and the largest difference between the two outputs (one per output;
 K9's and K10's taps must be equal, a difference of 0), beside the largest
@@ -257,6 +260,50 @@ def _all_dcn_inputs(dev, kept):
                                device=dev)(batch))
 
 
+def _aggregate_rows(a):
+    """For a K8 case, from its geometry and g: the valid (cell, waypoint)
+    pairs a cell, and the float4 reductions of the vector kernel's walk 2
+    before and after its merge (the cells with a non-zero g: a corner row
+    on the map is CT / 4 float4s; each of the 32 / (CT / 8) lane groups
+    takes a run of consecutive listed waypoints of each batch of 32 and
+    merges a row into the next waypoint's where that waypoint has it too)
+    -> (pairs a cell, before, after)."""
+    fm, g, rn, steps = a['fused_map'], a['g'], a['radial_norm'], a['steps']
+    _, h, w, ct = fm.shape
+    groups = 32 // (ct // 8)
+    way = (0.5 + rn[:, None, :] * steps[None, :, None]) * 2.0 - 1.0
+    boundary = torch.minimum(1.0 / rn[:, 0].abs(), 1.0 / rn[:, 1].abs())
+    valid = torch.sqrt((way ** 2).sum(-1)) < boundary[:, None]   # [N, G]
+    x0 = torch.floor(((way[..., 0] + 1.0) * w - 1.0) * 0.5).long()
+    y0 = torch.floor(((way[..., 1] + 1.0) * h - 1.0) * 0.5).long()
+    pix = []
+    for c in range(4):
+        ix, iy = x0 + (c & 1), y0 + (c >> 1)
+        on = (ix >= 0) & (ix < w) & (iy >= 0) & (iy < h)
+        pix.append(torch.where(on, iy * w + ix, -1))
+    pix = torch.where(valid[..., None], torch.stack(pix, -1), -1)
+    # the batches of 32 waypoints, each batch's valid ones first, in order
+    n, ng = valid.shape
+    pad = -ng % 32
+    valid = torch.nn.functional.pad(valid, (0, pad)).view(n, -1, 32)
+    pix = torch.nn.functional.pad(pix, (0, 0, 0, pad), value=-1).view(
+        n, -1, 32, 4)
+    listed = torch.argsort((~valid).byte(), dim=-1, stable=True)
+    pix = torch.gather(pix, 2, listed[..., None].expand(-1, -1, -1, 4))
+    n_in = valid.sum(-1, keepdim=True)                        # [N, nb, 1]
+    run = (n_in + groups - 1) // groups
+    k = torch.arange(32, device=pix.device)
+    group = k // run.clamp(min=1)
+    same = (k[:-1] + 1 < n_in) & (group[..., :-1] == group[..., 1:])
+    shared = ((pix[..., :-1, :, None] == pix[..., 1:, None, :]) &
+              (pix[..., :-1, :, None] >= 0)).any(-1).sum(-1)
+    rows = (pix >= 0).sum((1, 2, 3)).double()
+    merged = rows - (shared * same).sum((1, 2)).double()
+    live = (g != 0).any(-1).double()                          # [B, N]
+    return (valid.sum().item() / n, (live @ rows).sum().item() * ct // 4,
+            (live @ merged).sum().item() * ct // 4)
+
+
 def _launcher(lib, case, a, dev):
     """-> (launch function, reset function, output tensors) for one kept
     case."""
@@ -417,6 +464,14 @@ def main(argv=None) -> int:
             results[case]['g_zero_share'] = share
             print(f'{case}: g == 0 in {share["elements"]:.4f} of its '
                   f'elements, {share["rows"]:.4f} of its rows', flush=True)
+        if case.startswith('K8'):
+            pairs, before, after = _aggregate_rows(a)
+            results[case]['reductions'] = dict(
+                valid_per_cell=pairs, before_merge=before, after_merge=after)
+            print(f'{case}: {pairs:.2f} valid waypoints a cell; walk 2 '
+                  f'{before / 1e6:.2f}M float4 reductions before the merge, '
+                  f'{after / 1e6:.2f}M after ({after / before:.1%})',
+                  flush=True)
         for root, lib in others.items():
             run_other, reset_other, out_other = _launcher(lib, case, a, dev)
             t = [_time_ms(f, args.reps)
