@@ -1,7 +1,7 @@
 """Chip smoke test of the PyTorch/CUDA port: the ViDAR forecast, the
 pre-training step, the BEVFormer detection fine-tune (eval, streaming eval
-and train step), and the train and test CLIs on the released configs, on
-one GPU.
+and train step), the train and test CLIs on the released configs, and
+data parallelism across processes, on one GPU.
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and the
 CUDA toolkit:
@@ -118,7 +118,27 @@ it drives; a kernel of the path that never launched fails the run:
    every kernel is held against its plain version on them at the
    tolerances of phases 3-7: K1 at TSA, SCA (6 and 8 cameras) and the
    rollout decoder, K9 at each ResNet call, K3/K4, and (train runs) K5 at
-   each attention and K6/K7 and K8 on the step's own gradients.
+   each attention and K6/K7 and K8 on the step's own gradients;
+10. data parallelism across processes (``vidar_tpu_torch.parallel``).
+   a: one process at bs 2 on two samples whose counts of GT points and
+   valid rays differ (``vidar_base`` bf16 at phase 5's shapes and
+   weights, no grid mask, no dropout, Gumbel argmax: a warm-up step kept,
+   one timed step), then two spawned ranks of one sample each on the one
+   card over Gloo (NCCL refuses two ranks on one device): a counted
+   warm-up step (K1-K8 must launch on each rank, K9 and K10 not), two timed
+   steps with the gradient all-reduce timed, the parameters' digests equal
+   between the ranks after every step, step 1's losses, summed gradients
+   and update held to the bs-2 process (``DP_LOSS_RTOL``,
+   ``DP_MIN_COSINE``); then the same at test size with ``DetTrainStep``
+   (f32, 0 GT boxes on rank 0, 40 on rank 1). Each rank's s/it (two ranks
+   share the card: not a speed), all-reduce seconds, gradient bytes and
+   peak memory. b: the train CLI (2 steps) and the test CLI's forecast
+   eval (2 samples), each loading on one thread, on the released
+   pre-training config with ``--coordinator --num-processes 1
+   --process-id 0`` on NCCL (the backend printed), against the same runs without a process group
+   (``DP_CLI_RTOL``). c: the train CLI at two ranks on two cards over
+   NCCL, only where the machine shows two cards; the line says whether it
+   ran.
 
 The line before the last is a JSON object of per-kernel results; the last
 is ``{"ok": true, "device": {...}}``.
@@ -1222,9 +1242,9 @@ def _train_log(name, out, steps):
           f'{[round(m["data_wait_s"], 4) for m in out["log"]]}', flush=True)
 
 
-def _phase9(counted, card, check):
+def _phase9(counted, card, check, tmp):
     """The port's train and test CLIs in this process, on the card, on
-    nuScenes-format fixtures with JPEG cameras: the pre-training config
+    nuScenes-format fixtures with JPEG cameras written under ``tmp``: the pre-training config
     for 3 steps (its eval hook once), the forecast eval of its checkpoint,
     the fine-tune config for 2 steps from that checkpoint, the detection
     eval of the fine-tuned one (full window, then streaming), the
@@ -1234,7 +1254,8 @@ def _phase9(counted, card, check):
     pre-training, forecast-eval and OpenScene runs keep each kernel's
     first f32 input of each case, and ``check(run, keepers, launches)``
     holds the kernels against their plain versions on them.
-    -> {run: {kernel: launches}}."""
+    -> ({run: {kernel: launches}}, the ``--cfg-options`` of the nuScenes
+    fixture's data paths)."""
     from vidar_tpu_torch.ops import dcn, latent_render, msda
     from vidar_tpu_torch.tools import test as test_cli
     from vidar_tpu_torch.tools import train as train_cli
@@ -1249,164 +1270,573 @@ def _phase9(counted, card, check):
     backward = [msda.BACKWARD, latent_render.FIRST_HIT_BACKWARD,
                 latent_render.AGGREGATE_BACKWARD]
     runs = {}
-    with tempfile.TemporaryDirectory() as tmp:
+    t0 = time.perf_counter()
+    pkl, png_pkl, sources, jpegs = _write_nuscenes_fixture(tmp,
+                                                           png=True)
+    print(f'fixture: 14 samples x 6 cameras 900x1600 as JPEG (4:2:0, '
+          f'quality {JPEG_QUALITY}, 4 distinct images) and as PNG, '
+          f'34720 points and 40 GT boxes a sample, written in '
+          f'{time.perf_counter() - t0:.1f} s', flush=True)
+    _check_decoder(sources, jpegs)
+    del sources, jpegs
+    data = [f'data.{s}.{k}={v}' for s in ('train', 'test')
+            for k, v in (('ann_file', pkl), ('data_root', tmp))]
+    pre_opts = data + ['data.train.load_frame_interval=1',
+                       'log_interval=1', 'evaluation.interval=1',
+                       'evaluation.max_samples=1']
+    ft_opts = data + ['log_interval=1']
+
+    # the loader's host time on JPEG, and one PNG sample as before
+    _loader_timing(PRETRAIN_CONFIG, pre_opts,
+                   'pre-training, JPEG fixture')
+    _loader_timing(PRETRAIN_CONFIG,
+                   [o.replace(pkl, png_pkl) for o in pre_opts],
+                   'pre-training, PNG fixture', samples=1,
+                   threads=False)
+
+    def run(name, fn, argv, keepers=None):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        pkl, png_pkl, sources, jpegs = _write_nuscenes_fixture(tmp,
-                                                               png=True)
-        print(f'fixture: 14 samples x 6 cameras 900x1600 as JPEG (4:2:0, '
-              f'quality {JPEG_QUALITY}, 4 distinct images) and as PNG, '
-              f'34720 points and 40 GT boxes a sample, written in '
-              f'{time.perf_counter() - t0:.1f} s', flush=True)
-        _check_decoder(sources, jpegs)
-        del sources, jpegs
-        data = [f'data.{s}.{k}={v}' for s in ('train', 'test')
-                for k, v in (('ann_file', pkl), ('data_root', tmp))]
-        pre_opts = data + ['data.train.load_frame_interval=1',
-                           'log_interval=1', 'evaluation.interval=1',
-                           'evaluation.max_samples=1']
-        ft_opts = data + ['log_interval=1']
+        out, launches = _run_counted(counted, keepers or {},
+                                     lambda: fn(argv))
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        runs[name] = launches
+        kept = sum(_nbytes(v) for kp in (keepers or {}).values()
+                   for a in kp.inputs.values() for v in a.values()
+                   if torch.is_tensor(v))
+        print(f'cli {name}: {wall:.2f} s wall, peak device memory '
+              f'{peak / 2**30:.2f} GiB (the kernels\' kept inputs '
+              f'{kept / 2**30:.2f} GiB of it at most), launches '
+              f'{json.dumps(launches)} on {card}', flush=True)
+        if launches[dcn.KERNEL.name] or launches[dcn.SAMPLE16.name]:
+            raise RuntimeError(f'cli {name}: the f32 config ran a bf16 '
+                               f'kernel (K2 or K10)')
+        return out
 
-        # the loader's host time on JPEG, and one PNG sample as before
-        _loader_timing(PRETRAIN_CONFIG, pre_opts,
-                       'pre-training, JPEG fixture')
-        _loader_timing(PRETRAIN_CONFIG,
-                       [o.replace(pkl, png_pkl) for o in pre_opts],
-                       'pre-training, PNG fixture', samples=1,
-                       threads=False)
+    def need(name, kernels):
+        never = [k.name for k in kernels if runs[name][k.name] <= 0]
+        if never:
+            raise RuntimeError(f'cli {name}: kernels {never} never '
+                               f'launched')
 
-        def run(name, fn, argv, keepers=None):
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
+    pre_dir, ft_dir = f'{tmp}/pretrain', f'{tmp}/finetune'
+    keepers = _cli_keepers('cli_pretrain', train=True)
+    out = run('pretrain', train_cli.main,
+              [str(PRETRAIN_CONFIG), '--work-dir', pre_dir,
+               '--max-steps', '3', '--cfg-options', *pre_opts], keepers)
+    _train_log('pretrain', out, 3)
+    if len(out['eval']) != 1:
+        raise RuntimeError('cli pretrain: not one eval')
+    _finite_metrics('pretrain eval', out['eval'][0][1], ('key_score',))
+    need('pretrain', forward + backward)
+    check('cli_pretrain', keepers, runs['pretrain'])
+
+    keepers = _cli_keepers('cli_forecast_eval', train=False)
+    metrics = run('forecast_eval', test_cli.main,
+                  [str(PRETRAIN_CONFIG), f'{pre_dir}/latest',
+                   '--max-samples', '2', '--out', f'{tmp}/forecast.json',
+                   '--cfg-options', *data], keepers)
+    if sorted(metrics) != [f'frame.{f}' for f in range(7)]:
+        raise RuntimeError(f'cli forecast_eval: frames {sorted(metrics)}')
+    _finite_metrics('forecast_eval', metrics,
+                    ('frame.6.chamfer_distance',))
+    need('forecast_eval', forward)
+    check('cli_forecast_eval', keepers, runs['forecast_eval'])
+    del keepers
+
+    out = run('finetune', train_cli.main,
+              [str(FINETUNE_CONFIG), '--work-dir', ft_dir,
+               '--load-from', f'{pre_dir}/latest', '--max-steps', '2',
+               '--cfg-options', *ft_opts])
+    _train_log('finetune', out, 2)
+    print(f'cli finetune: n_loaded {out["loaded"]}', flush=True)
+    if out['loaded'] <= 0:
+        raise RuntimeError('cli finetune: nothing loaded from the '
+                           'pre-training checkpoint')
+    need('finetune', forward + backward)
+
+    for name, extra in (('det_eval', []), ('det_stream', ['--streaming'])):
+        metrics = run(name, test_cli.main,
+                      [str(FINETUNE_CONFIG), f'{ft_dir}/latest',
+                       '--max-samples', '3', *extra,
+                       '--cfg-options', *data])
+        _finite_metrics(name, metrics, ('NDS', 'mAP'))
+        need(name, forward)
+    for d in (pre_dir, ft_dir):
+        if not os.path.isfile(f'{d}/latest/model.pt'):
+            raise RuntimeError(f'no checkpoint in {d}/latest')
+        shutil.rmtree(d)
+
+    # the mem-efficient pre-training config (one supervised future, no
+    # auxiliary frames; its train split's random_aug_conf)
+    out = run('mem_efficient', train_cli.main,
+              [str(MEM_EFFICIENT_CONFIG), '--work-dir', f'{tmp}/mem',
+               '--max-steps', '2', '--cfg-options', *data,
+               'data.train.load_frame_interval=1', 'log_interval=1'])
+    _train_log('mem_efficient', out, 2)
+    need('mem_efficient', forward + backward)
+    shutil.rmtree(f'{tmp}/mem')
+
+    # the BEVFormer baseline from a synthetic FCOS3D backbone .pth
+    pth = f'{tmp}/r101_dcn_fcos3d_pretrain.pth'
+    decoys = _write_fcos3d_pth(pth)
+    out = run('bevformer_pth', train_cli.main,
+              [str(BASELINE_CONFIG), '--work-dir', f'{tmp}/baseline',
+               '--load-from', pth, '--max-steps', '1',
+               '--cfg-options', *ft_opts])
+    _train_log('bevformer_pth', out, 1)
+    imp = out['torch_import']
+    backbone = [k for k in torch.load(
+        f'{tmp}/baseline/latest/model.pt', map_location='cpu')
+        if k.startswith('img_backbone.')]
+    print(f'cli bevformer_pth: {imp.summary()}; the model has '
+          f'{len(backbone)} backbone tensors; unmapped {imp.unmapped}',
+          flush=True)
+    if (sorted(imp.matched) != sorted(backbone) or imp.shape_mismatch
+            or imp.unmapped != decoys):
+        raise RuntimeError('cli bevformer_pth: the .pth import did not '
+                           'set every backbone tensor, or left other '
+                           'than the decoys unmapped')
+    need('bevformer_pth', [msda.KERNEL, dcn.SAMPLE, msda.BACKWARD])
+    shutil.rmtree(f'{tmp}/baseline')
+    os.remove(pth)
+
+    # the OpenScene pre-training config: 8 cameras at 1080x1920 (scaled
+    # by 2/3), PCD lidar
+    t0 = time.perf_counter()
+    osc = f'{tmp}/openscene'
+    os_pkl, _, sources, jpegs = _write_nuscenes_fixture(
+        osc, num_cams=8, img_hw=(1080, 1920), lidar='pcd', seed=1)
+    print(f'fixture: OpenScene, 14 samples x 8 cameras 1080x1920 JPEG, '
+          f'PCD lidar, written in {time.perf_counter() - t0:.1f} s',
+          flush=True)
+    _check_decoder(sources, jpegs)
+    del sources, jpegs
+    os_opts = [f'data.{s}.{k}={v}' for s in ('train', 'test')
+               for k, v in (('ann_file', os_pkl), ('data_root', osc))]
+    os_opts += ['data.train.load_frame_interval=1', 'log_interval=1']
+    _loader_timing(OPENSCENE_CONFIG, os_opts, 'OpenScene, JPEG fixture',
+                   samples=1, threads=False)
+    keepers = _cli_keepers('cli_openscene', train=True)
+    out = run('openscene', train_cli.main,
+              [str(OPENSCENE_CONFIG), '--work-dir', f'{tmp}/os_work',
+               '--max-steps', '2', '--cfg-options', *os_opts], keepers)
+    _train_log('openscene', out, 2)
+    need('openscene', forward + backward)
+    check('cli_openscene', keepers, runs['openscene'])
+    return runs, data
+
+
+# ------------------------------------- phase 10: data parallelism
+
+# phase 10a's comparison of two ranks with one bs-2 process, as phase 5's
+# small-input train check holds the card to the CPU: the bf16 model's
+# losses to 2e-2 of each (the f32 fine-tune's to 1e-3, the CPU tests'
+# tolerance against the JAX package), and the flattened gradients and
+# updates at cosine 0.99, each gradient tensor (above 1e-3 of the largest)
+# at 0.9. The two sides batch the same samples differently (convolution
+# algorithms, sum orders) and the backward kernels' atomics reorder f32
+# sums from run to run.
+DP_LOSS_RTOL = {'pretrain': 2e-2, 'finetune': 1e-3}
+DP_MIN_COSINE, DP_MIN_TENSOR_COSINE = 0.99, 0.9
+# phase 10b: step 1's losses and the forecast eval's metrics through the
+# CLIs on NCCL against the same runs without a process group; the f32
+# forward kernels' relative tolerance (TOLERANCES['msda_forward'])
+DP_CLI_RTOL = 1e-4
+# a rank of phase 10 that has not ended in this time has hung
+DP_RANK_TIMEOUT = 600
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def _no_dropout_(model):
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    return model
+
+
+def _take(batch, r):
+    """Sample r of a batch dataclass, as a batch of one."""
+    return type(batch)(**{
+        f.name: (_take(v, r) if dataclasses.is_dataclass(v)
+                 else v[r:r + 1].clone())
+        for f in dataclasses.fields(batch)
+        for v in (getattr(batch, f.name),)})
+
+
+def _dp_inputs(dev):
+    """Phase 10a's models and two-sample batches on ``dev``, the same in
+    every process: ``vidar_base`` in bf16 with f32 parameters, phase 5's
+    shapes and 0.02-scale weights, and the fine-tune at test size in f32
+    with the small checks' unit-scale weights; no grid mask and no
+    dropout, so that the draws of the two ranks and of one process agree.
+    The forecast batch's sample 1 has a quarter of its 32768 GT points as
+    padding, so the samples' counts of GT points and valid rays differ; the
+    detection batch has 0 GT boxes in sample 0 and 40 in sample 1."""
+    from vidar_tpu_torch.configs import vidar_base, vidar_finetune_tiny
+    from vidar_tpu_torch.data import (make_synthetic_batch,
+                                      make_synthetic_det_batch)
+    from vidar_tpu_torch.models import BEVFormer, ViDAR
+    model = ViDAR(**vidar_base(use_grid_mask=False), dtype=torch.bfloat16,
+                  device=dev)
+    model.randomize_(torch.Generator(device=dev).manual_seed(2), 0.02)
+    batch = make_synthetic_batch(np.random.default_rng(0), bs=2,
+                                 queue_length=4, future_length=3, num_cams=6,
+                                 img_h=928, img_w=1600, max_points=32768,
+                                 device=dev)
+    tindex = batch.gt_tindex.clone()
+    tindex[1, ::4] = -1
+    batch.gt_tindex = tindex
+    det = BEVFormer(**vidar_finetune_tiny(use_grid_mask=False), device=dev)
+    _unit_scale_(det, torch.Generator(device=dev).manual_seed(5))
+    det_batch = make_synthetic_det_batch(np.random.default_rng(0), bs=2,
+                                         max_gt=64, num_gt=40, device=dev)
+    det_batch.gt_bboxes[0] = 0.0
+    det_batch.gt_labels[0] = 0
+    det_batch.num_valid_gt[0] = 0
+    return _no_dropout_(model), batch, _no_dropout_(det), det_batch
+
+
+def _state_digest(model) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for t in model.state_dict().values():
+        h.update(t.detach().contiguous().reshape(-1).view(torch.uint8)
+                 .cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dp_run(model, batch, det, det_batch, dev, timed_steps):
+    """One process's part of phase 10a (a rank, or the bs-2 reference):
+    rank 0's weights broadcast (where a process group exists), a counted
+    warm-up ``TrainStep`` whose metrics, summed gradients and update are
+    kept (f32, on the host), ``timed_steps`` timed steps with the gradient
+    all-reduce timed inside, the parameters' digest after each step, then
+    one counted ``DetTrainStep`` of the small fine-tune, kept the same way.
+    -> a dict of all that."""
+    from vidar_tpu_torch.ops import dcn, latent_render, msda
+    from vidar_tpu_torch.parallel import broadcast_parameters_
+    from vidar_tpu_torch.train import (DetTrainStep, TrainStep,
+                                       make_optimizer)
+    counted = [msda.KERNEL, dcn.KERNEL, latent_render.FIRST_HIT,
+               latent_render.AGGREGATE, msda.BACKWARD,
+               latent_render.FIRST_HIT_BACKWARD,
+               latent_render.AGGREGATE_BACKWARD, dcn.SAMPLE, dcn.SAMPLE16]
+
+    def counted_step(fn, m, b):
+        before = {n: p.detach().float().clone()
+                  for n, p in m.named_parameters()}
+        for k in counted:
+            k.launches = 0
+        metrics = fn(b)
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in counted}
+        grads = {n: (p.grad.float().cpu() if p.grad is not None else
+                     torch.zeros(p.shape)) for n, p in m.named_parameters()}
+        update = {n: (p.detach().float() - before[n]).cpu()
+                  for n, p in m.named_parameters()}
+        return dict(metrics=metrics, launches=launches, grads=grads,
+                    update=update, digests=[_state_digest(m)])
+
+    broadcast_parameters_(model)
+    broadcast_parameters_(det)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step = TrainStep(model, make_optimizer(model, device=dev), device=dev)
+    reduce_s = []
+    sum_gradients = step._sum_gradients
+
+    def timed_sum_gradients():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sum_gradients()
+        torch.cuda.synchronize()
+        reduce_s.append(time.perf_counter() - t0)
+
+    step._sum_gradients = timed_sum_gradients
+    out = dict(pretrain=counted_step(step, model, batch))
+    times = []
+    for _ in range(timed_steps):
+        t0 = time.perf_counter()
+        metrics = step(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        out['pretrain']['digests'].append(_state_digest(model))
+        if not all(np.isfinite(v) for v in metrics.values()):
+            raise RuntimeError(f'phase 10a: non-finite metrics {metrics}')
+    out['times'] = times
+    out['reduce_s'] = reduce_s[1:]           # the timed steps'
+    out['grad_bytes'] = sum(p.grad.numel() * p.grad.element_size()
+                            for p in model.parameters()
+                            if p.grad is not None)
+    out['peak'] = torch.cuda.max_memory_allocated()
+    dstep = DetTrainStep(det, make_optimizer(det, device=dev), device=dev)
+    out['finetune'] = counted_step(dstep, det, det_batch)
+    return out
+
+
+def _phase10_rank(r, port, path):
+    """Rank r of phase 10a, in a process of its own: joins the Gloo group
+    of two ranks on the one card, takes sample r of phase 10a's batches,
+    runs ``_dp_run`` and saves it to ``path`` (rank 1 without the host
+    copies of the gradients and updates)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from vidar_tpu_torch.parallel import (local_device,
+                                          maybe_initialize_distributed,
+                                          shutdown)
+    import torch.distributed as dist
+    maybe_initialize_distributed(f'127.0.0.1:{port}', 2, r, device='cuda',
+                                 backend='gloo')
+    try:
+        dev = local_device('cuda')
+        model, batch, det, det_batch = _dp_inputs(dev)
+        batch, det_batch = _take(batch, r), _take(det_batch, r)
+        out = _dp_run(model, batch, det, det_batch, dev, timed_steps=2)
+        out['backend'], out['device'] = dist.get_backend(), str(dev)
+        if r:
+            for part in ('pretrain', 'finetune'):
+                out[part].pop('grads')
+                out[part].pop('update')
+        torch.save(out, path)
+    finally:
+        shutdown()
+
+
+def _join_ranks(procs, timeout=DP_RANK_TIMEOUT):
+    """Wait for every rank process; one that fails or outlives ``timeout``
+    ends them all (the others would wait for it in a collective), and
+    raises."""
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.is_alive() for p in procs):
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break
+            if time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if any(c != 0 for c in codes):
+        raise RuntimeError(f'phase 10: rank exit codes {codes}')
+
+
+def _spawn_ranks(target, args_of_rank):
+    import multiprocessing
+    ctx = multiprocessing.get_context('spawn')
+    procs = [ctx.Process(target=target, args=args)
+             for args in args_of_rank]
+    for p in procs:
+        p.start()
+    _join_ranks(procs)
+
+
+def _dp_compare(label, ref, got):
+    """A two-rank step (rank 0's kept copy) against the bs-2 reference:
+    losses, gradients and updates (cosines), grad_norm; raises beyond the
+    phase's tolerances."""
+    loss_err, cos, per_tensor = _grad_agreement(
+        [({k: got['metrics'][k] for k in ref['metrics'] if k != 'grad_norm'
+           and k != 'sca_overflow'}, got['grads']),
+         ({k: ref['metrics'][k] for k in ref['metrics'] if k != 'grad_norm'
+           and k != 'sca_overflow'}, ref['grads'])])
+    flat = [torch.cat([u[n].reshape(-1) for n in ref['update']]).double()
+            for u in (got['update'], ref['update'])]
+    upd_cos = torch.nn.functional.cosine_similarity(*flat, 0).item()
+    norm_err = (abs(got['metrics']['grad_norm'] - ref['metrics']['grad_norm'])
+                / ref['metrics']['grad_norm'])
+    worst = min(per_tensor, key=per_tensor.get)
+    print(f'phase 10a {label}: two ranks vs one process at bs 2: losses '
+          f'{json.dumps({k: [got["metrics"][k], ref["metrics"][k]] for k in ref["metrics"]})}; '
+          f'max loss diff {loss_err:.3g} of each, grad_norm diff '
+          f'{norm_err:.3g}; gradient cosine {cos:.6f} (flattened), min per '
+          f'tensor {per_tensor[worst]:.4f} ({worst}); update cosine '
+          f'{upd_cos:.6f}', flush=True)
+    tol = DP_LOSS_RTOL[label]
+    if (loss_err > tol or norm_err > tol or cos < DP_MIN_COSINE or
+            per_tensor[worst] < DP_MIN_TENSOR_COSINE or
+            upd_cos < DP_MIN_COSINE):
+        raise RuntimeError(f'phase 10a {label}: the two ranks disagree with '
+                           f'the one bs-2 process')
+
+
+def _phase10a(card, tmp):
+    """Two Gloo ranks on the one card against one process at bs 2 (run
+    first, alone): -> {rank: {part: {kernel: launches}}}."""
+    from vidar_tpu_torch.ops import dcn
+    dev = torch.device('cuda:0')
+    torch.cuda.empty_cache()
+    print('phase 10a: one process at bs 2 (the reference), then two Gloo '
+          'ranks of one sample each on cuda:0 (randomness off: no grid '
+          'mask, no dropout, Gumbel argmax)', flush=True)
+    t0 = time.perf_counter()
+    model, batch, det, det_batch = _dp_inputs(dev)
+    ref = _dp_run(model, batch, det, det_batch, dev, timed_steps=1)
+    del model, batch, det, det_batch
+    torch.cuda.empty_cache()
+    print(f'phase 10a reference (bs 2, one process): step '
+          f'{ref["times"][0]:.4f} s/it, peak memory '
+          f'{ref["peak"] / 2**30:.2f} GiB, {time.perf_counter() - t0:.1f} s '
+          f'in all, on {card}', flush=True)
+    t0 = time.perf_counter()
+    port = _free_port()
+    paths = [f'{tmp}/dp_rank{r}.pt' for r in range(2)]
+    _spawn_ranks(_phase10_rank, [(r, port, paths[r]) for r in range(2)])
+    ranks = [torch.load(p, weights_only=False) for p in paths]
+    print(f'phase 10a: the two ranks ran in {time.perf_counter() - t0:.1f} '
+          f's (spawn, build load, setup, 3 + 1 steps)', flush=True)
+    for part in ('pretrain', 'finetune'):
+        a, b = (res[part] for res in ranks)
+        if a['digests'] != b['digests'] or a['metrics'] != b['metrics']:
+            raise RuntimeError(f'phase 10a {part}: the two ranks\' '
+                               f'parameters or metrics differ')
+        print(f'phase 10a {part}: the ranks\' parameters bit-identical after '
+              f'each of {len(a["digests"])} steps', flush=True)
+        _dp_compare(part, ref[part], ranks[0][part])
+    need = [k for k in ranks[0]['pretrain']['launches']
+            if k not in (dcn.SAMPLE.name, dcn.SAMPLE16.name)]
+    for r, res in enumerate(ranks):
+        print(f'phase 10a rank {r} ({res["backend"]} on {res["device"]}): '
+              f'timed steps {" ".join(f"{t:.4f}" for t in res["times"])} '
+              f's/it (two ranks share the card: not a speed), gradient '
+              f'all-reduce {" ".join(f"{t:.4f}" for t in res["reduce_s"])} '
+              f's a step for {res["grad_bytes"] / 2**20:.1f} MiB of f32 '
+              f'gradients, peak memory {res["peak"] / 2**30:.2f} GiB; '
+              f'launches {json.dumps(res["pretrain"]["launches"])}, '
+              f'fine-tune step {json.dumps(res["finetune"]["launches"])} on '
+              f'{card}', flush=True)
+        if res['backend'] != 'gloo':
+            raise RuntimeError(f'phase 10a rank {r}: backend '
+                               f'{res["backend"]}')
+        never = [k for k in need if res['pretrain']['launches'][k] <= 0]
+        if never:
+            raise RuntimeError(f'phase 10a rank {r}: kernels {never} never '
+                               f'launched in the step')
+        if (res['pretrain']['launches'][dcn.SAMPLE.name] or
+                res['pretrain']['launches'][dcn.SAMPLE16.name]):
+            raise RuntimeError('phase 10a: the bf16 step ran K9 or K10')
+    return {r: {part: res[part]['launches'] for part in ('pretrain',
+                                                         'finetune')}
+            for r, res in enumerate(ranks)}
+
+
+def _phase10b(card, tmp, data):
+    """The train CLI (2 steps) and the test CLI's forecast eval (2
+    samples) on the released pre-training config with ``--coordinator
+    --num-processes 1 --process-id 0`` (NCCL), against the same runs
+    without a process group. Both evals read the single run's checkpoint.
+    Every run loads one sample at a time (the train CLI's
+    ``--deterministic``; the test CLI's loader set to one thread here):
+    with the CLIs' 4 loader threads the train split's augmentation and the
+    test split's point subsample (above ``max_points``) draw from the
+    dataset's one RNG in the threads' order (ROADMAP.md §3)."""
+    import torch.distributed as dist
+    from vidar_tpu_torch.data.prefetch import PrefetchLoader
+    from vidar_tpu_torch.tools import test as test_cli
+    from vidar_tpu_torch.tools import train as train_cli
+    opts = data + ['data.train.load_frame_interval=1', 'log_interval=1']
+    backends = {}
+
+    def probe(fn, name):
+        def wrapped(args):
+            backends[name] = (dist.get_backend() if dist.is_initialized()
+                              else None)
+            return fn(args)
+        return wrapped
+
+    def samples_one_thread(dataset, indices):
+        return iter(PrefetchLoader(dataset.__getitem__, indices,
+                                   num_threads=1, depth=2))
+
+    train, evaluate, samples = (train_cli._train, test_cli._evaluate,
+                                test_cli._samples)
+    train_cli._train = probe(train, 'train')
+    test_cli._evaluate = probe(evaluate, 'test')
+    test_cli._samples = samples_one_thread
+    runs = {}
+    try:
+        for mode in ('single', 'nccl'):
+            flags = [] if mode == 'single' else [
+                '--num-processes', '1', '--process-id', '0', '--coordinator']
             t0 = time.perf_counter()
-            out, launches = _run_counted(counted, keepers or {},
-                                         lambda: fn(argv))
-            wall = time.perf_counter() - t0
-            peak = torch.cuda.max_memory_allocated()
-            runs[name] = launches
-            kept = sum(_nbytes(v) for kp in (keepers or {}).values()
-                       for a in kp.inputs.values() for v in a.values()
-                       if torch.is_tensor(v))
-            print(f'cli {name}: {wall:.2f} s wall, peak device memory '
-                  f'{peak / 2**30:.2f} GiB (the kernels\' kept inputs '
-                  f'{kept / 2**30:.2f} GiB of it at most), launches '
-                  f'{json.dumps(launches)} on {card}', flush=True)
-            if launches[dcn.KERNEL.name] or launches[dcn.SAMPLE16.name]:
-                raise RuntimeError(f'cli {name}: the f32 config ran a bf16 '
-                                   f'kernel (K2 or K10)')
-            return out
+            out = train_cli.main(
+                [str(PRETRAIN_CONFIG), '--work-dir', f'{tmp}/dp_{mode}',
+                 '--max-steps', '2', '--deterministic',
+                 *(flags + [f'127.0.0.1:{_free_port()}'] if flags else []),
+                 '--cfg-options', *opts])
+            metrics = test_cli.main(
+                [str(PRETRAIN_CONFIG), f'{tmp}/dp_single/latest',
+                 '--max-samples', '2',
+                 *(flags + [f'127.0.0.1:{_free_port()}'] if flags else []),
+                 '--cfg-options', *data])
+            runs[mode] = (out['log'], metrics, dict(backends))
+            print(f'phase 10b {mode}: backend during the train run '
+                  f'{backends["train"]}, during the eval {backends["test"]};'
+                  f' {time.perf_counter() - t0:.1f} s for 2 steps and 2 '
+                  f'eval samples on {card}', flush=True)
+    finally:
+        train_cli._train, test_cli._evaluate, test_cli._samples = (
+            train, evaluate, samples)
+    (log_s, met_s, be_s), (log_n, met_n, be_n) = runs['single'], runs['nccl']
+    keys = [k for k in log_s[0] if k.startswith('frame.') or k == 'loss']
+    errs = [max(abs(n[k] - s[k]) / max(abs(s[k]), 1e-12) for k in keys)
+            for s, n in zip(log_s, log_n)]
+    flat_s = {f'{f}.{k}': v for f, fv in met_s.items() for k, v in fv.items()}
+    flat_n = {f'{f}.{k}': v for f, fv in met_n.items() for k, v in fv.items()}
+    eval_err = max(abs(flat_n[k] - v) / max(abs(v), 1e-12)
+                   for k, v in flat_s.items())
+    print(f'phase 10b: NCCL at world size 1 vs no process group: step 1 '
+          f'losses max rel diff {errs[0]:.3g}, step 2 {errs[1]:.3g} (after '
+          f'an update through the backward kernels\' atomics); forecast '
+          f'eval metrics max rel diff {eval_err:.3g}; step 1 loss '
+          f'{log_n[0]["loss"]:.6f} vs {log_s[0]["loss"]:.6f}', flush=True)
+    if be_s != {'train': None, 'test': None} or be_n != {'train': 'nccl',
+                                                         'test': 'nccl'}:
+        raise RuntimeError(f'phase 10b: backends {be_s} and {be_n}')
+    if errs[0] > DP_CLI_RTOL or eval_err > DP_CLI_RTOL or sorted(
+            flat_s) != sorted(flat_n):
+        raise RuntimeError('phase 10b: the NCCL run differs from the run '
+                           'without a process group')
 
-        def need(name, kernels):
-            never = [k.name for k in kernels if runs[name][k.name] <= 0]
-            if never:
-                raise RuntimeError(f'cli {name}: kernels {never} never '
-                                   f'launched')
 
-        pre_dir, ft_dir = f'{tmp}/pretrain', f'{tmp}/finetune'
-        keepers = _cli_keepers('cli_pretrain', train=True)
-        out = run('pretrain', train_cli.main,
-                  [str(PRETRAIN_CONFIG), '--work-dir', pre_dir,
-                   '--max-steps', '3', '--cfg-options', *pre_opts], keepers)
-        _train_log('pretrain', out, 3)
-        if len(out['eval']) != 1:
-            raise RuntimeError('cli pretrain: not one eval')
-        _finite_metrics('pretrain eval', out['eval'][0][1], ('key_score',))
-        need('pretrain', forward + backward)
-        check('cli_pretrain', keepers, runs['pretrain'])
+def _phase10c_rank(r, port, argv):
+    from vidar_tpu_torch.tools import train as train_cli
+    out = train_cli.main(argv + ['--coordinator', f'127.0.0.1:{port}',
+                                 '--num-processes', '2', '--process-id',
+                                 str(r)])
+    if not all(np.isfinite(m['loss']) for m in out['log']):
+        raise RuntimeError(f'phase 10c rank {r}: non-finite losses')
 
-        keepers = _cli_keepers('cli_forecast_eval', train=False)
-        metrics = run('forecast_eval', test_cli.main,
-                      [str(PRETRAIN_CONFIG), f'{pre_dir}/latest',
-                       '--max-samples', '2', '--out', f'{tmp}/forecast.json',
-                       '--cfg-options', *data], keepers)
-        if sorted(metrics) != [f'frame.{f}' for f in range(7)]:
-            raise RuntimeError(f'cli forecast_eval: frames {sorted(metrics)}')
-        _finite_metrics('forecast_eval', metrics,
-                        ('frame.6.chamfer_distance',))
-        need('forecast_eval', forward)
-        check('cli_forecast_eval', keepers, runs['forecast_eval'])
-        del keepers
 
-        out = run('finetune', train_cli.main,
-                  [str(FINETUNE_CONFIG), '--work-dir', ft_dir,
-                   '--load-from', f'{pre_dir}/latest', '--max-steps', '2',
-                   '--cfg-options', *ft_opts])
-        _train_log('finetune', out, 2)
-        print(f'cli finetune: n_loaded {out["loaded"]}', flush=True)
-        if out['loaded'] <= 0:
-            raise RuntimeError('cli finetune: nothing loaded from the '
-                               'pre-training checkpoint')
-        need('finetune', forward + backward)
-
-        for name, extra in (('det_eval', []), ('det_stream', ['--streaming'])):
-            metrics = run(name, test_cli.main,
-                          [str(FINETUNE_CONFIG), f'{ft_dir}/latest',
-                           '--max-samples', '3', *extra,
-                           '--cfg-options', *data])
-            _finite_metrics(name, metrics, ('NDS', 'mAP'))
-            need(name, forward)
-        for d in (pre_dir, ft_dir):
-            if not os.path.isfile(f'{d}/latest/model.pt'):
-                raise RuntimeError(f'no checkpoint in {d}/latest')
-            shutil.rmtree(d)
-
-        # the mem-efficient pre-training config (one supervised future, no
-        # auxiliary frames; its train split's random_aug_conf)
-        out = run('mem_efficient', train_cli.main,
-                  [str(MEM_EFFICIENT_CONFIG), '--work-dir', f'{tmp}/mem',
-                   '--max-steps', '2', '--cfg-options', *data,
-                   'data.train.load_frame_interval=1', 'log_interval=1'])
-        _train_log('mem_efficient', out, 2)
-        need('mem_efficient', forward + backward)
-        shutil.rmtree(f'{tmp}/mem')
-
-        # the BEVFormer baseline from a synthetic FCOS3D backbone .pth
-        pth = f'{tmp}/r101_dcn_fcos3d_pretrain.pth'
-        decoys = _write_fcos3d_pth(pth)
-        out = run('bevformer_pth', train_cli.main,
-                  [str(BASELINE_CONFIG), '--work-dir', f'{tmp}/baseline',
-                   '--load-from', pth, '--max-steps', '1',
-                   '--cfg-options', *ft_opts])
-        _train_log('bevformer_pth', out, 1)
-        imp = out['torch_import']
-        backbone = [k for k in torch.load(
-            f'{tmp}/baseline/latest/model.pt', map_location='cpu')
-            if k.startswith('img_backbone.')]
-        print(f'cli bevformer_pth: {imp.summary()}; the model has '
-              f'{len(backbone)} backbone tensors; unmapped {imp.unmapped}',
-              flush=True)
-        if (sorted(imp.matched) != sorted(backbone) or imp.shape_mismatch
-                or imp.unmapped != decoys):
-            raise RuntimeError('cli bevformer_pth: the .pth import did not '
-                               'set every backbone tensor, or left other '
-                               'than the decoys unmapped')
-        need('bevformer_pth', [msda.KERNEL, dcn.SAMPLE, msda.BACKWARD])
-        shutil.rmtree(f'{tmp}/baseline')
-        os.remove(pth)
-
-        # the OpenScene pre-training config: 8 cameras at 1080x1920 (scaled
-        # by 2/3), PCD lidar
-        t0 = time.perf_counter()
-        osc = f'{tmp}/openscene'
-        os_pkl, _, sources, jpegs = _write_nuscenes_fixture(
-            osc, num_cams=8, img_hw=(1080, 1920), lidar='pcd', seed=1)
-        print(f'fixture: OpenScene, 14 samples x 8 cameras 1080x1920 JPEG, '
-              f'PCD lidar, written in {time.perf_counter() - t0:.1f} s',
-              flush=True)
-        _check_decoder(sources, jpegs)
-        del sources, jpegs
-        os_opts = [f'data.{s}.{k}={v}' for s in ('train', 'test')
-                   for k, v in (('ann_file', os_pkl), ('data_root', osc))]
-        os_opts += ['data.train.load_frame_interval=1', 'log_interval=1']
-        _loader_timing(OPENSCENE_CONFIG, os_opts, 'OpenScene, JPEG fixture',
-                       samples=1, threads=False)
-        keepers = _cli_keepers('cli_openscene', train=True)
-        out = run('openscene', train_cli.main,
-                  [str(OPENSCENE_CONFIG), '--work-dir', f'{tmp}/os_work',
-                   '--max-steps', '2', '--cfg-options', *os_opts], keepers)
-        _train_log('openscene', out, 2)
-        need('openscene', forward + backward)
-        check('cli_openscene', keepers, runs['openscene'])
-    return runs
+def _phase10c(card, tmp, data):
+    """The train CLI at two ranks on two cards over NCCL, where the machine
+    shows two cards."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f'phase 10c (two ranks on two cards over NCCL): not run, the '
+              f'machine shows {n} card', flush=True)
+        return
+    t0 = time.perf_counter()
+    argv = [str(PRETRAIN_CONFIG), '--work-dir', f'{tmp}/dp_two_cards',
+            '--max-steps', '2', '--cfg-options', *data,
+            'data.train.load_frame_interval=1', 'log_interval=1']
+    port = _free_port()
+    _spawn_ranks(_phase10c_rank, [(r, port, argv) for r in range(2)])
+    print(f'phase 10c: the train CLI at two ranks on cuda:0 and cuda:1 '
+          f'over NCCL, 2 steps in {time.perf_counter() - t0:.1f} s on '
+          f'{card}', flush=True)
 
 
 def main() -> int:
@@ -2222,7 +2652,15 @@ def main() -> int:
             raise RuntimeError(f'{run}: a kernel disagrees with its plain '
                                f'version on the CLI path')
 
-    cli = _phase9(counted, card, check_cli)
+    with tempfile.TemporaryDirectory() as fixture_dir:
+        cli, data = _phase9(counted, card, check_cli, fixture_dir)
+
+        # -- phase 10: data parallelism across processes
+        t0 = time.perf_counter()
+        dp = _phase10a(card, fixture_dir)
+        _phase10b(card, fixture_dir, data)
+        _phase10c(card, fixture_dir, data)
+        print(f'phase 10: {time.perf_counter() - t0:.1f} s', flush=True)
 
     for r in results:
         base = r['name'].split('[')[0]
@@ -2232,6 +2670,9 @@ def main() -> int:
         r['all_dcn_launches'] = dcn_launches[base]
         for run, launches in cli.items():
             r[f'cli_{run}_launches'] = launches[base]
+        for rank, parts in dp.items():
+            r[f'dp_rank{rank}_launches'] = parts['pretrain'][base]
+            r[f'dp_finetune_rank{rank}_launches'] = parts['finetune'][base]
     print(json.dumps({'kernels': results}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

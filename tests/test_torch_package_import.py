@@ -20,6 +20,8 @@ def _modules():
 def test_imports_without_jax():
     mods = _modules()
     assert 'vidar_tpu_torch.ops.msda' in mods
+    assert {'vidar_tpu_torch.parallel', 'vidar_tpu_torch.parallel.mesh',
+            'vidar_tpu_torch.parallel.multihost'} <= set(mods)
     code = ("import sys\n"
             "for name in ('jax', 'jaxlib', 'flax', 'PIL'):\n"
             "    sys.modules[name] = None\n"

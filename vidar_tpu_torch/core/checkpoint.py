@@ -42,6 +42,8 @@ from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel.multihost import barrier, is_main
+
 MODEL_FILE = 'model.pt'
 OPTIMIZER_FILE = 'optimizer.pt'
 META_FILE = 'meta.json'
@@ -60,7 +62,15 @@ def _check_dir(path: str) -> None:
 def save_checkpoint(path: str, state: Mapping) -> None:
     """Write ``state`` to the directory ``path`` (replaced whole):
     ``state['model']`` a module or a state dict, ``state['optimizer']`` the
-    port's ``AdamW`` or None, ``state['step']`` an int."""
+    port's ``AdamW`` or None, ``state['step']`` an int. Across processes
+    every rank calls it: rank 0 writes (the replicas are equal), and every
+    rank returns once the directory is complete."""
+    if is_main():
+        _write_checkpoint(path, state)
+    barrier()
+
+
+def _write_checkpoint(path: str, state: Mapping) -> None:
     model = state['model']
     sd = model.state_dict() if hasattr(model, 'state_dict') else model
     tmp = f'{os.path.abspath(path)}.tmp{os.getpid()}'

@@ -16,6 +16,7 @@ import torch
 import torch.nn as nn
 
 from ..core import bbox as bbox_core
+from ..parallel.mesh import global_sum
 from .attention import PredictionMSDeformableAttention
 from .layers import (DROPOUT, FFN, Dense, LayerNorm,
                      MultiHeadDotProductAttention, TorchLinear)
@@ -197,15 +198,20 @@ class BEVFormerHead(nn.Module):
                              torch.full_like(a_safe, self.num_classes))
         targets = torch.gather(gt_norm, 1, a_safe[..., None].expand(
             -1, -1, gt_norm.shape[-1]))
-        num_pos = pos.sum().float().clamp(min=1.0)
+        # matched queries of the global batch (every rank's), then clamped
+        num_pos = global_sum(pos.sum().float()).clamp(min=1.0)
         cls_l = bbox_core.sigmoid_focal_loss(cls_scores, labels,
                                              self.num_classes).sum()
         cls_l = cls_l * CLS_LOSS_WEIGHT / num_pos
         cw = torch.tensor(CODE_WEIGHTS, dtype=bbox_preds.dtype,
                           device=bbox_preds.device)
-        isfin = torch.isfinite(targets).all(-1) & pos
-        l1 = (bbox_preds - targets).abs() * cw
-        l1 = (l1 * isfin[..., None].to(l1.dtype)).sum()
+        isfin = (torch.isfinite(targets).all(-1) & pos)[..., None]
+        # the reference takes the finite matched targets by index (its
+        # loss_bbox(bbox_preds[isnotnan], ...)); a padding box, which
+        # normalises to -inf, must not reach the product with the mask: its
+        # NaN would zero the whole batch's loss, every sample's
+        targets = torch.where(isfin, targets, torch.zeros_like(targets))
+        l1 = ((bbox_preds - targets).abs() * cw * isfin.to(cw.dtype)).sum()
         bbox_l = l1 * BBOX_LOSS_WEIGHT / num_pos
         return torch.nan_to_num(cls_l), torch.nan_to_num(bbox_l)
 

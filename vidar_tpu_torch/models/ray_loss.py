@@ -11,6 +11,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.gather import bilinear_corners
+from ..parallel.mesh import global_sum
 
 NEG_INF = -1e9
 RAY_CHUNK = 4096  # rays per sampling step
@@ -133,9 +134,12 @@ def ray_waypoint_features(sigma: torch.Tensor, origin_grids: torch.Tensor,
 
 def ray_ce_loss(feats: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """Cross entropy along each ray, the GT waypoint (index 0) positive:
-    sum(w * CE) / max(sum(w), 1) (ray_loss.py:274-286)."""
+    sum(w * CE) / max(sum(w), 1) (ray_loss.py:274-286), the weights summed
+    over the global batch (every rank's) before the clamp, as JAX's step
+    sums them over its global batch."""
     ce = torch.logsumexp(feats, dim=-1) - feats[..., 0]
-    return (ce * weights).sum() / torch.clamp(weights.sum(), min=1.0)
+    return (ce * weights).sum() / torch.clamp(global_sum(weights.sum()),
+                                              min=1.0)
 
 
 def gumbel_softmax_distance(feats: torch.Tensor, lengths: torch.Tensor,

@@ -20,6 +20,7 @@ import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..parallel.mesh import global_sum
 from .fpn import FPN
 from .grid_mask import grid_mask
 from .resnet import ResNet
@@ -316,8 +317,11 @@ class ViDAR(CameraModel, nn.Module):
             next_feats = torch.cat([next_feats, preds])
         # [frames, layers, channels, bs, N, Z]; the last layer, channel-major
         sigma = head.forward_head(next_feats)
-        # frame 0 opens the queue: its own flag is excluded (vidar.py:372)
-        full_prev = batch.prev_bev_exists[:, 1:].all()
+        # frame 0 opens the queue: its own flag is excluded (vidar.py:372);
+        # JAX's all() spans the global batch, so the missing flags are
+        # counted over every rank's samples
+        missing = (~batch.prev_bev_exists[:, 1:]).sum()
+        full_prev = global_sum(missing) == 0
         return head.loss(sigma[:, -1].permute(1, 0, 2, 3, 4),
                          batch.gt_points, batch.gt_tindex, batch.cur2ref,
                          batch.ref2cur, num_rollout=num_future + 1,

@@ -13,6 +13,8 @@ import torch
 import torch.nn as nn
 
 from ..ops.chamfer import chamfer_distance_masked
+from ..parallel.mesh import global_sum
+from ..parallel.multihost import world_size
 from . import ray_loss
 from .layers import MLP, LearnedPositionalEncoding, TorchLinear
 from .vidar_decoder import PredictionDecoder
@@ -190,7 +192,7 @@ class ViDARHead(nn.Module):
                 dist = ray_loss.gumbel_softmax_distance(
                     rays.feats, rays.lengths, generator)
                 dist_l = (dist - rays.lengths[..., 0]).abs() * sf
-                total_w = torch.clamp(ray_w.sum(), min=1.0)
+                total_w = torch.clamp(global_sum(ray_w.sum()), min=1.0)
                 losses[f'frame.{ch}.dist.loss.loss'] = (
                     (dist_l * ray_w).sum() / total_w * scale)
             if self.use_dense_loss and ch == cur:
@@ -242,7 +244,8 @@ class ViDARHead(nn.Module):
                     p, g, all_valid, gt_mask[b])
                 has_gt = gt_mask[b].any().float()
                 loss = loss + (l_src + l_dst) / 2.0 * frame_w[f] * has_gt
-        denom = torch.clamp(frame_w.sum(), min=1e-6) * bs
+        # JAX's bs is the global batch: every rank's samples
+        denom = torch.clamp(frame_w.sum(), min=1e-6) * (bs * world_size())
         return loss / denom * self.dense_loss_weight
 
     def decode_pointcloud(self, sigma_cur, gt_points, gt_tindex, cur2ref,

@@ -15,7 +15,8 @@ import hashlib
 import os
 import subprocess
 from pathlib import Path
-from ..ops._build import BUILD_DIR
+
+from ..ops import _build
 
 SRC = Path(__file__).resolve().with_name('hostops.cpp')
 # no floating-point contraction: the resize must round as Pillow does; no
@@ -25,22 +26,28 @@ FLAGS = ('-O3', '-ffp-contract=off', '-shared', '-fPIC', '-std=c++17')
 
 def _path() -> Path:
     h = hashlib.sha256(SRC.read_bytes() + ' '.join(FLAGS).encode())
-    return BUILD_DIR / f'hostops-{h.hexdigest()[:16]}.so'
+    return _build.BUILD_DIR / f'hostops-{h.hexdigest()[:16]}.so'
 
 
 def build() -> str:
-    """Compile (or reuse) the library -> its path. Raises RuntimeError
-    where g++ fails."""
+    """Compile (or reuse) the library -> its path, under the build
+    directory's lock (processes that start together build once). Raises
+    RuntimeError where g++ fails."""
     out = _path()
     if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f'{out.name}.{os.getpid()}.tmp')
-        proc = subprocess.run(['g++', *FLAGS, str(SRC), '-o', str(tmp)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f'g++ failed on {SRC.name}:\n{proc.stderr}')
-        os.replace(tmp, out)
+        with _build.build_lock():
+            if not out.exists():
+                _compile(out)
     return str(out)
+
+
+def _compile(out: Path) -> None:
+    tmp = out.with_name(f'{out.name}.{os.getpid()}.tmp')
+    proc = subprocess.run(['g++', *FLAGS, str(SRC), '-o', str(tmp)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f'g++ failed on {SRC.name}:\n{proc.stderr}')
+    os.replace(tmp, out)
 
 
 if __name__ == '__main__':

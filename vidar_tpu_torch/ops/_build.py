@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -162,6 +163,21 @@ def _compile(so_path: Path, sources) -> None:
     os.replace(tmp, so_path)
 
 
+@contextlib.contextmanager
+def build_lock():
+    """Hold the build directory's lock, across processes: the ranks of a
+    multi-process run that start together build once, and the others load
+    that build. An ``flock``, which the kernel drops when its holder exits,
+    so a process killed in a build leaves no stale lock."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / 'build.lock', 'w') as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def load_library() -> ctypes.CDLL:
     """Build (at first use, or after a source changed) and load the
     kernels' shared library."""
@@ -173,7 +189,9 @@ def load_library() -> ctypes.CDLL:
                              list(CSRC.glob('*.cuh')))
             so_path = BUILD_DIR / f'libvidar_kernels_{_digest(sources)}.so'
             if not so_path.exists():
-                _compile(so_path, sources)
+                with build_lock():
+                    if not so_path.exists():
+                        _compile(so_path, sources)
             lib = ctypes.CDLL(str(so_path))
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)

@@ -1,4 +1,5 @@
-"""Evaluation CLI of the port (vidar_tpu/tools/test.py on one card).
+"""Evaluation CLI of the port (vidar_tpu/tools/test.py, one process per
+card).
 
 Runs the forecast eval loop: history encode + future rollout + depth
 decode through ``ForecastRunner``, chamfer / ray-error metrics per frame,
@@ -12,10 +13,18 @@ Usage:
   python -m vidar_tpu_torch.tools.test CONFIG [CHECKPOINT_DIR | PTH]
       [--cfg-options k.ey=value ...] [--max-samples N] [--out FILE]
       [--submission] [--streaming] [--dump-viz PKL] [--device cpu]
+      [--coordinator HOST:PORT --num-processes N --process-id R]
 
 It runs on the card (``--device cuda``, the default) unless the caller asks
 for the CPU. ``main(argv)`` returns the metrics, so a script can call it in
 the same process.
+
+Across N processes (the three flags or the ``VIDAR_*`` environment, as the
+train CLI) the forecast eval splits the samples into N contiguous blocks,
+one a rank, and gathers their per-frame metrics on rank 0, which alone
+aggregates, prints and writes them; the other ranks return None. The
+detection eval, window or streaming, runs whole in every process (as in
+JAX: streaming needs the continuous video); rank 0 alone prints and writes.
 """
 
 from __future__ import annotations
@@ -33,17 +42,20 @@ from ..core.builder import build_dataset, build_model
 from ..core.checkpoint import import_torch_checkpoint, load_params_partial
 from ..core.config import apply_overrides, load_config
 from ..data.prefetch import PrefetchLoader
-from ..device import resolve_device
+from ..data.samplers import contiguous_shard
 from ..evals.det_runner import CLASS_NAMES, DetectionRunner
 from ..evals.detection import evaluate_detection
 from ..evals.forecast_runner import ForecastRunner
 from ..evals.metrics import aggregate_frame_metrics, forecast_metrics
 from ..models import BEVFormer
+from ..parallel import (add_distributed_args, is_main, local_device,
+                        maybe_initialize_distributed, process_gather_objects,
+                        rank, shutdown, world_size)
 
 
 def parse_args(argv: Optional[Sequence[str]] = None):
     p = argparse.ArgumentParser(
-        description='Evaluate a ViDAR model (PyTorch, one GPU)')
+        description='Evaluate a ViDAR model (PyTorch, one process per GPU)')
     p.add_argument('config')
     p.add_argument('checkpoint', nargs='?', default=None,
                    help='checkpoint directory of vidar_tpu_torch, or a '
@@ -66,6 +78,7 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                         'video_test_mode, bevformer.py:291-324)')
     p.add_argument('--device', default='cuda',
                    help='torch device (default cuda; cpu only on request)')
+    add_distributed_args(p)
     args = p.parse_args(argv)
     if args.viz_pcd or args.viz_path is not None:
         raise NotImplementedError(
@@ -100,14 +113,15 @@ def load_model_weights(model, checkpoint: Optional[str]):
         n_ok = len(import_torch_checkpoint(checkpoint, model).matched)
         return n_ok, len(model.state_dict()) - n_ok
     n_ok, n_skip = load_params_partial(checkpoint, model)
-    print(f'checkpoint {checkpoint}: {n_ok} tensors loaded, {n_skip} kept '
-          f'from init', flush=True)
+    if is_main():
+        print(f'checkpoint {checkpoint}: {n_ok} tensors loaded, {n_skip} '
+              f'kept from init', flush=True)
     return n_ok, n_skip
 
 
-def _samples(dataset, n: int):
-    """Samples 0..n-1 in order, decoded by 4 loader threads."""
-    return iter(PrefetchLoader(dataset.__getitem__, range(n), num_threads=4,
+def _samples(dataset, indices):
+    """The samples of ``indices`` in order, decoded by 4 loader threads."""
+    return iter(PrefetchLoader(dataset.__getitem__, indices, num_threads=4,
                                depth=8))
 
 
@@ -120,7 +134,7 @@ def det_eval(args, cfg, model, dataset, device):
                              class_names=class_names)
     n = min(len(dataset), args.max_samples or len(dataset))
     predictions, ground_truth, viz_dump = {}, {}, {}
-    for i, batch in enumerate(_samples(dataset, n)):
+    for i, batch in enumerate(_samples(dataset, range(n))):
         meta = dataset.streaming_meta(i) if args.streaming else None
         pred, gt = runner(batch, meta)
         predictions[f's{i}'] = pred
@@ -136,16 +150,17 @@ def det_eval(args, cfg, model, dataset, device):
                 lidar2img=batch.frames.lidar2img[0, -1].numpy(),
                 pred={k: pred[k] for k in ('boxes', 'scores', 'labels')},
                 gt={k: gt[k] for k in ('boxes', 'labels')})
-        if (i + 1) % 10 == 0:
+        if (i + 1) % 10 == 0 and is_main():
             print(f'[{i + 1}/{n}]', flush=True)
 
+    metrics = evaluate_detection(predictions, ground_truth, class_names)
+    if not is_main():
+        return metrics
     if args.dump_viz:
         os.makedirs(os.path.dirname(args.dump_viz) or '.', exist_ok=True)
         with open(args.dump_viz, 'wb') as f:
             pickle.dump(viz_dump, f)
         print(f'viz dump: {args.dump_viz} ({len(viz_dump)} samples)')
-
-    metrics = evaluate_detection(predictions, ground_truth, class_names)
     for k, v in metrics.items():
         print(f'{k}: {v:.4f}')
     if args.out:
@@ -161,13 +176,15 @@ def uniad_eval(args, cfg):
                               '(ROADMAP.md queue 1)')
 
 
-def forecast_eval(model, dataset, n: int, num_future: int, pc_range,
-                  device, *, submission_path: Optional[str] = None):
-    """Samples 0..n-1 through ``ForecastRunner`` -> their per-frame metric
-    dicts (``forecast_metrics``), each written as a submission where
-    ``submission_path`` is given."""
+def forecast_eval(model, dataset, indices: Sequence[int], num_future: int,
+                  pc_range, device, *,
+                  submission_path: Optional[str] = None):
+    """The samples of ``indices`` through ``ForecastRunner`` -> their
+    per-frame metric dicts (``forecast_metrics``), each written as a
+    submission where ``submission_path`` is given."""
     runner, results = None, []
-    for i, batch in enumerate(_samples(dataset, n)):
+    n = len(indices)
+    for j, (i, batch) in enumerate(zip(indices, _samples(dataset, indices))):
         if runner is None:
             runner = ForecastRunner(model, batch.images.shape[3:5],
                                     num_future=num_future, device=device)
@@ -178,8 +195,8 @@ def forecast_eval(model, dataset, n: int, num_future: int, pc_range,
             save_submission(decode['pred_dist'][0].cpu().numpy(),
                             decode['frame_idx'][0].cpu().numpy(),
                             f'sample{i}', submission_path)
-        if (i + 1) % 10 == 0 or i + 1 == n:
-            print(f'[{i + 1}/{n}]', flush=True)
+        if is_main() and ((j + 1) % 10 == 0 or j + 1 == n):
+            print(f'[{j + 1}/{n}]', flush=True)
     return results
 
 
@@ -207,7 +224,7 @@ def run_val_evaluation(cfg, model, max_samples=None, device='cuda'):
         runner = DetectionRunner(model, device=device,
                                  class_names=class_names)
         predictions, ground_truth = {}, {}
-        for i, batch in enumerate(_samples(dataset, n)):
+        for i, batch in enumerate(_samples(dataset, range(n))):
             pred, ground_truth[f's{i}'] = runner(batch)
             # no attributes on either side, as vidar_tpu/tools/test.py:
             # 346-354
@@ -218,7 +235,7 @@ def run_val_evaluation(cfg, model, max_samples=None, device='cuda'):
         return metrics
 
     num_future = cfg['model'].get('test_future_frame_num', 6)
-    results = forecast_eval(model, dataset, n, num_future,
+    results = forecast_eval(model, dataset, range(n), num_future,
                             cfg['model']['pc_range'], device)
     agg = aggregate_frame_metrics(results)
     flat = {f'{fk}.{k}': v for fk, fv in agg.items() for k, v in fv.items()}
@@ -228,8 +245,21 @@ def run_val_evaluation(cfg, model, max_samples=None, device='cuda'):
 
 
 def main(argv: Optional[Sequence[str]] = None):
+    """-> the metrics (None on a rank other than 0 of a forecast eval). A
+    process group that it joined, it leaves before it returns."""
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    joined = maybe_initialize_distributed(
+        args.coordinator, args.num_processes, args.process_id,
+        device=args.device)
+    try:
+        return _evaluate(args)
+    finally:
+        if joined:
+            shutdown()
+
+
+def _evaluate(args):
+    device = local_device(args.device)
     cfg = apply_overrides(load_config(args.config), args.cfg_options)
     if cfg['model'].get('type', 'ViDAR') in ('UniAD', 'UniADTrack'):
         return uniad_eval(args, cfg)
@@ -246,9 +276,15 @@ def main(argv: Optional[Sequence[str]] = None):
 
     num_future = cfg['model'].get('test_future_frame_num', 6)
     n = min(len(dataset), args.max_samples or len(dataset))
+    # contiguous blocks keep each rank's video continuous (reference
+    # samplers/distributed_sampler.py:22-41); rank 0 gathers them in order
     results = forecast_eval(
-        model, dataset, n, num_future, cfg['model']['pc_range'], device,
+        model, dataset, contiguous_shard(n, rank(), world_size()),
+        num_future, cfg['model']['pc_range'], device,
         submission_path=args.submission_path if args.submission else None)
+    results = [m for part in process_gather_objects(results) for m in part]
+    if not is_main():
+        return None
     agg = aggregate_frame_metrics(results)
     for fk, fv in agg.items():
         print(f'==== {fk} results: ====')

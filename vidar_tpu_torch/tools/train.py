@@ -1,4 +1,5 @@
-"""Training CLI of the port (vidar_tpu/tools/train.py on one card).
+"""Training CLI of the port (vidar_tpu/tools/train.py, one process per
+card).
 
 Builds the model and the train split from a config, feeds the epochs'
 samples through the threaded ``PrefetchLoader``, steps ``TrainStep`` (a
@@ -12,10 +13,19 @@ Usage:
       [--resume-from CKPT] [--load-from CKPT | PTH]
       [--cfg-options k.ey=value ...]
       [--seed N] [--deterministic] [--max-steps N] [--device cpu]
+      [--coordinator HOST:PORT --num-processes N --process-id R]
 
 It runs on the card (``--device cuda``, the default) unless the caller asks
 for the CPU. ``main(argv)`` returns what it logged, so a script can call it
 in the same process.
+
+Across N processes (the three flags, or ``VIDAR_COORDINATOR`` /
+``VIDAR_NUM_PROCESSES`` / ``VIDAR_PROCESS_ID``; one process per card, NCCL;
+Gloo with ``--device cpu``) each rank loads ``samples_per_gpu`` samples of
+its shard of the epoch, so a step takes N x ``samples_per_gpu`` samples and
+computes JAX's step on that global batch. Rank 0 alone writes the log
+lines, ``config_dump.txt``, the checkpoints and runs the evaluation; the
+other ranks wait for it.
 """
 
 from __future__ import annotations
@@ -37,8 +47,11 @@ from ..core.config import apply_overrides, dump_config, load_config
 from ..data.prefetch import PrefetchLoader
 from ..data.samplers import GroupShuffleSampler
 from ..data.structures import collate_samples
-from ..device import resolve_device
 from ..models import BEVFormer
+from ..parallel import (add_distributed_args, barrier, broadcast_object,
+                        broadcast_parameters_, is_main, local_device,
+                        maybe_initialize_distributed, rank, shutdown,
+                        world_size)
 from ..train import DetTrainStep, TrainStep, make_optimizer
 from ..train.ema import EMA
 from ..train.eval_hook import EvalHook
@@ -47,7 +60,7 @@ from .test import run_val_evaluation
 
 def parse_args(argv: Optional[Sequence[str]] = None):
     p = argparse.ArgumentParser(
-        description='Train a ViDAR model (PyTorch, one GPU)')
+        description='Train a ViDAR model (PyTorch, one process per GPU)')
     p.add_argument('config', help='config file path')
     p.add_argument('--work-dir', default=None)
     p.add_argument('--resume-from', default=None)
@@ -62,6 +75,7 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                    help='override total steps (debug)')
     p.add_argument('--device', default='cuda',
                    help='torch device (default cuda; cpu only on request)')
+    add_distributed_args(p)
     return p.parse_args(argv)
 
 
@@ -69,17 +83,33 @@ def main(argv: Optional[Sequence[str]] = None):
     """-> dict(step: the last step, log: the logged metric dicts, eval: the
     in-training evaluations as (epoch, metrics), loaded: the tensors
     ``--load-from`` / ``load_from`` loaded, torch_import: the
-    ``TorchImport`` of a ``.pth`` (else None), work_dir)."""
+    ``TorchImport`` of a ``.pth`` (else None), work_dir, model). A process
+    group that it joined, it leaves before it returns."""
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    joined = maybe_initialize_distributed(
+        args.coordinator, args.num_processes, args.process_id,
+        device=args.device)
+    try:
+        return _train(args)
+    finally:
+        if joined:
+            shutdown()
+
+
+def _train(args):
+    device = local_device(args.device)
     cfg = apply_overrides(load_config(args.config), args.cfg_options)
     work_dir = args.work_dir or cfg.get('work_dir') or os.path.join(
         'work_dirs', os.path.splitext(os.path.basename(args.config))[0])
-    os.makedirs(work_dir, exist_ok=True)
-    with open(os.path.join(work_dir, 'config_dump.txt'), 'w') as f:
-        f.write(dump_config(cfg))
+    if is_main():
+        os.makedirs(work_dir, exist_ok=True)
+        with open(os.path.join(work_dir, 'config_dump.txt'), 'w') as f:
+            f.write(dump_config(cfg))
+    barrier()
 
-    torch.manual_seed(args.seed)
+    # dropout draws differ between ranks, as JAX's per-sample draws differ
+    # between the samples of its global batch
+    torch.manual_seed(args.seed + rank())
     model = build_model(cfg['model'], device=device)
     model.init_weights_(torch.Generator(device=device).manual_seed(
         args.seed))
@@ -87,16 +117,17 @@ def main(argv: Optional[Sequence[str]] = None):
     local_batch = int(cfg.get('data', {}).get('samples_per_gpu', 1))
 
     # training sampler: per-epoch shuffled (reference
-    # DistributedGroupSampler, samplers/group_sampler.py:15), one rank.
-    # Datasets expose ``group_ids`` for aspect-grouping; default is one
-    # group = plain shuffle.
+    # DistributedGroupSampler, samplers/group_sampler.py:15), sharded by
+    # rank. Datasets expose ``group_ids`` for aspect-grouping; default is
+    # one group = plain shuffle.
     group_ids = getattr(dataset, 'group_ids', None)
     if group_ids is None:
         group_ids = np.zeros(len(dataset), np.int64)
-    sampler = GroupShuffleSampler(group_ids, seed=args.seed)
+    sampler = GroupShuffleSampler(group_ids, rank=rank(),
+                                  world_size=world_size(), seed=args.seed)
 
     total_epochs = cfg.get('total_epochs', 24)
-    epoch_len = len(sampler.epoch_indices(0))
+    epoch_len = len(sampler.epoch_indices(0))  # this rank's shard
     steps_per_epoch = max(1, epoch_len // local_batch)
     total_steps = args.max_steps or total_epochs * steps_per_epoch
 
@@ -140,12 +171,15 @@ def main(argv: Optional[Sequence[str]] = None):
             # a previous stage's checkpoint (pretrain -> finetune): partial,
             # shape-checked restore (mmcv strict=False contract)
             loaded, kept = load_params_partial(load_from, model)
-            print(f'load_from {load_from}: {loaded} tensors loaded, '
-                  f'{kept} kept from init', flush=True)
+            if is_main():
+                print(f'load_from {load_from}: {loaded} tensors loaded, '
+                      f'{kept} kept from init', flush=True)
         elif args.load_from:
             raise FileNotFoundError(load_from)
-        else:
+        elif is_main():
             print(f'load_from {load_from!r} not found; training from init')
+    # every rank starts from rank 0's weights
+    broadcast_parameters_(model)
 
     opt_cfg = cfg.get('optimizer', {})
     optimizer = make_optimizer(
@@ -155,19 +189,25 @@ def main(argv: Optional[Sequence[str]] = None):
         backbone_lr_mult=opt_cfg.get('backbone_lr_mult', 0.1),
         grad_clip_norm=cfg.get('grad_clip_norm', 35.0),
         total_steps=total_steps, device=device)
-    generator = torch.Generator(device=device).manual_seed(args.seed)
+    # the grid mask and the Gumbel noise per rank; the frame gate, one for
+    # the global batch in JAX, from a generator seeded alike on every rank
+    generator = torch.Generator(device=device).manual_seed(args.seed + rank())
     if isinstance(model, BEVFormer):
         step_fn = DetTrainStep(model, optimizer, generator=generator,
                                device=device)
     else:
+        gate_generator = (None if world_size() == 1 else torch.Generator(
+            device=device).manual_seed(args.seed))
         step_fn = TrainStep(
-            model, optimizer, generator=generator, device=device,
+            model, optimizer, generator=generator,
+            gate_generator=gate_generator, device=device,
             supervise_all_future=cfg['model'].get('supervise_all_future',
                                                   True))
 
     start = 0
     if args.resume_from:
         start = load_checkpoint(args.resume_from, model, optimizer)
+        broadcast_parameters_(model)
 
     def state(step):
         return {'model': model, 'optimizer': optimizer, 'step': step}
@@ -191,18 +231,25 @@ def main(argv: Optional[Sequence[str]] = None):
     def maybe_evaluate(epoch, step):
         if eval_hook is None or not eval_hook.should_evaluate(epoch):
             return
-        metrics = run_val_evaluation(cfg, model,
-                                     max_samples=eval_cfg.get('max_samples'),
-                                     device=device)
-        if metrics is None:
-            return
-        evals.append((epoch, metrics))
-        print(f'[eval @ epoch {epoch}] ' + json.dumps(
-            {k: round(float(v), 5) for k, v in metrics.items()}), flush=True)
-        if eval_hook.record(epoch, metrics.get('key_score')):
+        best = False
+        if is_main():
+            # rank 0 alone, unsharded, as JAX evaluates during training;
+            # the other ranks wait at the barrier (multihost.TIMEOUT)
+            metrics = run_val_evaluation(
+                cfg, model, max_samples=eval_cfg.get('max_samples'),
+                device=device)
+            if metrics is not None:
+                evals.append((epoch, metrics))
+                print(f'[eval @ epoch {epoch}] ' + json.dumps(
+                    {k: round(float(v), 5) for k, v in metrics.items()}),
+                    flush=True)
+                best = eval_hook.record(epoch, metrics.get('key_score'))
+        barrier()
+        if broadcast_object(best):
             save_checkpoint(os.path.join(work_dir, 'best'), state(step))
-            print(f'[eval] new best '
-                  f'{eval_hook.save_best}={eval_hook.best_score:.5f}')
+            if is_main():
+                print(f'[eval] new best '
+                      f'{eval_hook.save_best}={eval_hook.best_score:.5f}')
 
     # EMA hook (reference core/hooks/ema.py; enable with cfg `ema = dict(
     # mode='exp'|'linear', momentum=..., gamma=...)`)
@@ -241,7 +288,10 @@ def main(argv: Optional[Sequence[str]] = None):
                 m['data_wait_s'] = wait / log_interval
                 t0, wait = time.time(), 0.0
                 log.append(m)
-                print(f'[{it}/{total_steps}] ' + json.dumps(m), flush=True)
+                if is_main():
+                    print(f'[{it}/{total_steps}] ' + json.dumps(m),
+                          flush=True)
+                # the metrics are the global batch's, equal on every rank
                 if m.get('sca_overflow', 0) > 0:
                     # visible queries were dropped by the SCA static
                     # capacity — a silent parity loss vs the reference's
@@ -251,7 +301,8 @@ def main(argv: Optional[Sequence[str]] = None):
                            f'model.sca_capacity_ratio')
                     if cfg.get('sca_overflow_action', 'warn') == 'raise':
                         raise RuntimeError(msg)
-                    print(f'WARNING: {msg}', file=sys.stderr)
+                    if is_main():
+                        print(f'WARNING: {msg}', file=sys.stderr)
             if it % ckpt_interval == 0:
                 save_checkpoint(os.path.join(work_dir, f'step_{it}'),
                                 state(it))
@@ -265,7 +316,7 @@ def main(argv: Optional[Sequence[str]] = None):
         save_checkpoint(os.path.join(work_dir, 'ema_latest'),
                         {'model': ema.state_dict(model), 'step': ema.step})
     return dict(step=it, log=log, eval=evals, loaded=loaded,
-                torch_import=imported, work_dir=work_dir)
+                torch_import=imported, work_dir=work_dir, model=model)
 
 
 if __name__ == '__main__':

@@ -6,7 +6,14 @@
 gated rollout, the ray CE and dense chamfer losses), the backward pass and
 the clipped AdamW update, and returns the step's metrics. ``DetTrainStep``,
 the fine-tune step: the train forward of ``BEVFormer``, its
-Hungarian-matched focal + L1 loss, the backward pass and the update."""
+Hungarian-matched focal + L1 loss, the backward pass and the update.
+
+Across processes (``vidar_tpu_torch.parallel``) each rank steps on its
+local slice of the global batch, and the step computes what JAX's step
+computes on the global batch: the losses divide by normalisers summed over
+the ranks in the forward, so the gradients are SUMMED over the ranks after
+the backward (a mean, as DistributedDataParallel takes, would divide them
+by the world size once more), and so are the reported losses."""
 
 from __future__ import annotations
 
@@ -16,6 +23,8 @@ import torch
 
 from ..device import resolve_device
 from ..models.encoder import sca_overflow_count
+from ..parallel.mesh import all_reduce_sum_, global_max, global_sum
+from ..parallel.multihost import world_size
 
 
 class _Step:
@@ -33,14 +42,38 @@ class _Step:
         """The step's backward pass (a method, so a profiler can time it)."""
         total.backward()
 
+    def _sum_gradients(self) -> None:
+        """Sum every parameter's gradient over the ranks, in place. A
+        ``None`` gradient counts as zeros and stays ``None`` only where it
+        is ``None`` on every rank, so every rank reduces the same list in
+        the same order (no hang where a gated-off future leaves some
+        parameters without a gradient)."""
+        params = [p for grp in self.optimizer.param_groups
+                  for p in grp['params']]
+        has = global_sum(torch.tensor([p.grad is not None for p in params],
+                                      dtype=torch.float32,
+                                      device=self.device))
+        live = [p for p, h in zip(params, has.tolist()) if h > 0]
+        for p in live:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        all_reduce_sum_([p.grad for p in live])
+
     def _update(self, losses) -> Dict[str, float]:
-        """Backward of the sum of ``losses`` and the clipped update -> every
-        loss, ``loss`` and ``grad_norm`` as Python numbers."""
+        """Backward of the sum of ``losses``, the gradients summed over the
+        ranks, and the clipped update -> every loss and ``loss`` (summed
+        over the ranks: the global batch's) and ``grad_norm`` (of the
+        summed gradients) as Python numbers."""
         total = sum(losses.values())
         self.backward(total)
+        values = dict(losses, loss=total)
+        if world_size() > 1:
+            self._sum_gradients()
+            stacked = global_sum(torch.stack(
+                [v.detach().float() for v in values.values()]))
+            values = dict(zip(values, stacked.unbind()))
         grad_norm = self.optimizer.step()
-        metrics = {k: float(v.detach()) for k, v in losses.items()}
-        metrics['loss'] = float(total.detach())
+        metrics = {k: float(v.detach()) for k, v in values.items()}
         metrics['grad_norm'] = float(grad_norm)
         return metrics
 
@@ -49,27 +82,36 @@ class TrainStep(_Step):
     """``step(batch) -> metrics``: every loss, ``loss`` (their sum),
     ``grad_norm`` (the global norm before clipping, as
     ``optax.global_norm(grads)``) and ``sca_overflow`` (visible queries the
-    SCA capacity dropped anywhere in the batch), as Python numbers.
+    SCA capacity dropped anywhere in the batch, every rank's), as Python
+    numbers.
 
     ``supervise_all_future`` False supervises one future frame, drawn from
     ``generator``, and rolls the others out without gradient (reference
     vidar.py:336-338). ``generator`` also draws the grid mask and the Gumbel
     noise of the dense loss, as the JAX step does (vidar_tpu/train/step.py:
-    79-96). Dropout draws from PyTorch's default generator."""
+    79-96). Dropout draws from PyTorch's default generator.
+
+    ``gate_generator``, where given, draws the gate instead: JAX draws one
+    gate for the global batch, so across processes it is seeded alike on
+    every rank while ``generator`` is seeded per rank."""
 
     def __init__(self, model, optimizer, *, supervise_all_future: bool = True,
                  generator: Optional[torch.Generator] = None,
+                 gate_generator: Optional[torch.Generator] = None,
                  device='cuda'):
         super().__init__(model, optimizer, generator=generator, device=device)
         self.supervise_all_future = supervise_all_future
+        self.gate_generator = (generator if gate_generator is None
+                               else gate_generator)
 
     def frame_gate(self):
         """The [num_future] 0/1 gate of the supervised rollout frames."""
         num_future = self.model.future_pred_frame_num
         if self.supervise_all_future or num_future == 0:
             return [1.0] * max(num_future, 1)
-        gdev = self.generator.device if self.generator is not None else 'cpu'
-        pick = int(torch.randint(0, num_future, (), generator=self.generator,
+        gen = self.gate_generator
+        gdev = gen.device if gen is not None else 'cpu'
+        pick = int(torch.randint(0, num_future, (), generator=gen,
                                  device=gdev))
         return [float(i == pick) for i in range(num_future)]
 
@@ -78,12 +120,14 @@ class TrainStep(_Step):
         batch = batch.to(self.device)
         m.train()
         self.optimizer.zero_grad(set_to_none=True)
-        metrics = self._update(m(batch, generator=self.generator,
-                                 gumbel_generator=self.generator,
-                                 train_frame_gate=self.frame_gate()))
-        metrics['sca_overflow'] = int(sca_overflow_count(
+        losses = m(batch, generator=self.generator,
+                   gumbel_generator=self.generator,
+                   train_frame_gate=self.frame_gate())
+        metrics = self._update(losses)
+        # the worst (frame, camera) of the global batch, as in JAX
+        metrics['sca_overflow'] = int(global_max(sca_overflow_count(
             batch.lidar2img, tuple(batch.images.shape[3:5]), m.bev_h,
-            m.bev_w, m.pc_range, m.sca_capacity_ratio))
+            m.bev_w, m.pc_range, m.sca_capacity_ratio)))
         return metrics
 
 
