@@ -1,7 +1,8 @@
 """Chip smoke test of the PyTorch/CUDA port: the ViDAR forecast, the
 pre-training step, the BEVFormer detection fine-tune (eval, streaming eval
-and train step), the train and test CLIs on the released configs, and
-data parallelism across processes, on one GPU.
+and train step), the train and test CLIs on the released configs, data
+parallelism across processes, and UniAD (its eval, clip train step and
+CLIs), on one GPU.
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and the
 CUDA toolkit:
@@ -138,7 +139,31 @@ it drives; a kernel of the path that never launched fails the run:
    --process-id 0`` on NCCL (the backend printed), against the same runs without a process group
    (``DP_CLI_RTOL``). c: the train CLI at two ranks on two cards over
    NCCL, only where the machine shows two cards; the line says whether it
-   ran.
+   ran;
+11. UniAD (``configs/uniad/stage2_e2e/vidar_e2e.py``: embed 256, BEV
+   200x200, 900 track and 300 map queries, 6 cameras, R101 with DCN in
+   stages 3-4, latent rendering at layer 2, 12 steps x 6 modes), f32,
+   ``init_weights_`` from seed 0. a: 3 streamed eval frames on a synthetic
+   6 x 928x1600 batch (s/frame, peak memory, tracks alive), a fourth
+   frame timed stage by stage with CUDA events (``_stage_times``: the
+   track stages, each head, the occupancy dense decoder and transformer
+   layers, the planning BEV adapter, attention and collision
+   optimisation, and the rest, in ms as one JSON line), then the clip
+   train step (``UniADTrainStep``, 40 agents with persistent ids) at the
+   config's 6 frames, one fewer after each out-of-memory (each printed),
+   its warm-up and a timed step (s/it, peak memory, the frames used); b:
+   on phase 9's JPEG fixture with persistent instances
+   (``_uniad_fixture``): the train CLI on ``vidar_e2e.py`` for 2 steps,
+   its UniAD eval of 4 samples of one scene (the six metrics
+   ``UNIAD_KEYS``, each finite, printed), ``base_track_map.py`` for 1 step
+   (K1, K5 and K9; no latent rendering), the frame cut of a as the only
+   depth cut (printed); each run's wall time, peak memory and launches.
+   The eval, the step and the e2e CLI runs keep each kernel's first input
+   of each case and hold it against its plain version (phase 9's check):
+   K1 and K5 at the motion head's 64,872 folded queries, the panoptic
+   encoder's 40,000 and decoder's 300, the track decoder's 900, TSA and
+   SCA; K9 at stages 3-4; K3/K4 and K6/K7, K8. ``uniad_*_launches`` and
+   ``cli_uniad_*_launches`` in the kernel line.
 
 The line before the last is a JSON object of per-kernel results; the last
 is ``{"ok": true, "device": {...}}``.
@@ -303,6 +328,48 @@ def _dcn_image_case(args):
     history and 1-image camera-sequential calls add ``,b24`` and ``,b1``."""
     stage, b = _dcn_case(args), args['x'].shape[0]
     return stage if stage is None or b == 30 else f'{stage},b{b}'
+
+
+def _stage_times(stages, fn):
+    """Run fn with each (object, attribute, name) of ``stages`` wrapped in
+    CUDA events on the current stream -> ({name: ms summed over its
+    calls}, the whole call's ms); fn's result is dropped, so that it holds
+    no device memory after. A stage may be a module's global function or
+    lie inside another stage; each is restored after."""
+    spans, wrapped = {}, []
+
+    def wrap(obj, attr, name):
+        inner = getattr(obj, attr)
+        own = vars(obj).get(attr)
+
+        def timed(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = inner(*args, **kwargs)
+            end.record()
+            spans.setdefault(name, []).append((start, end))
+            return out
+        object.__setattr__(obj, attr, timed)
+        wrapped.append((obj, attr, own))
+
+    for obj, attr, name in stages:
+        wrap(obj, attr, name)
+    first = torch.cuda.Event(enable_timing=True)
+    last = torch.cuda.Event(enable_timing=True)
+    try:
+        first.record()
+        fn()
+        last.record()
+        torch.cuda.synchronize()
+    finally:
+        for obj, attr, own in wrapped:
+            if own is None:
+                object.__delattr__(obj, attr)
+            else:
+                object.__setattr__(obj, attr, own)
+    return {name: sum(a.elapsed_time(b) for a, b in ev)
+            for name, ev in spans.items()}, first.elapsed_time(last)
 
 
 def _run_counted(kernels, keepers, fn):
@@ -1427,6 +1494,403 @@ def _phase9(counted, card, check, tmp):
     need('openscene', forward + backward)
     check('cli_openscene', keepers, runs['openscene'])
     return runs, data
+
+
+# ------------------------------------------------------- phase 11: UniAD
+
+UNIAD_E2E_CONFIG = (ROOT / 'configs' / 'uniad' / 'stage2_e2e' /
+                    'vidar_e2e.py')
+UNIAD_TRACK_MAP_CONFIG = (ROOT / 'configs' / 'uniad' / 'stage1_track_map' /
+                          'base_track_map.py')
+UNIAD_KEYS = ('amota', 'amotp', 'NDS', 'minADE', 'planning.L2',
+              'planning.obj_box_col')
+# the clip step's frames: the config's window (queue_length + 1) first,
+# then one fewer after each out-of-memory, down to this
+UNIAD_MIN_FRAMES = 1
+# the library path's synthetic cameras: nuScenes' 6 at the padded size
+UNIAD_CAMS, UNIAD_IMAGE = 6, (928, 1600)
+
+
+def _uniad_msda_case(cfg, run='uniad'):
+    """K1's and K5's UniAD calls by (batch, levels, queries): TSA, SCA, the
+    track decoder, the panoptic encoder (every BEV cell a query) and
+    decoder, and the motion head's steps folded into its queries."""
+    hw = cfg['bev_h'] * cfg['bev_w']
+    motion = ((cfg['num_query'] + 1) * cfg.get('predict_modes', 6) *
+              cfg.get('predict_steps', 12))
+    by_queries = {cfg['num_query']: 'track_decoder', hw: 'seg_encoder',
+                  cfg.get('num_seg_query', 300): 'seg_decoder',
+                  motion: 'motion'}
+
+    def case(a):
+        b, levels = a['value'].shape[0], len(a['spatial_shapes'])
+        q = a['loc'].shape[1]
+        if levels == 4:
+            name = 'sca'
+        elif b == 2:
+            name = 'tsa'
+        else:
+            name = by_queries.get(q, f'b{b},l{levels},q{q}')
+        return f'{run}:{name}'
+    return case
+
+
+def _uniad_keepers(cfg, run, train):
+    """The UniAD path's keepers: each kernel's first input of each case,
+    named ``run:case`` as ``check`` (phase 9's) reads them."""
+    from vidar_tpu_torch.ops import dcn, latent_render, msda
+    msda_case = _uniad_msda_case(cfg, run)
+    keepers = {msda.KERNEL.name: _Keeper(msda_case),
+               dcn.SAMPLE.name: _Keeper(
+                   lambda a: f'{run}:{_dcn_image_case(a) or _dcn_case(a)}'),
+               latent_render.FIRST_HIT.name: _Keeper(
+                   lambda a: f'{run}:encoder'),
+               latent_render.AGGREGATE.name: _Keeper(
+                   lambda a: f'{run}:encoder')}
+    if train:
+        keepers.update({
+            msda.BACKWARD.name: _Keeper(msda_case),
+            latent_render.FIRST_HIT_BACKWARD.name: _Keeper(
+                lambda a: f'{run}:encoder'),
+            latent_render.AGGREGATE_BACKWARD.name: _Keeper(
+                lambda a: f'{run}:encoder')})
+    return keepers
+
+
+def _uniad_targets(rng, frames, dev, model, num_gt=40, max_gt=128,
+                   max_map=32, map_gt=8):
+    """A clip's UniAD targets at ``model``'s widths:
+    num_gt agents with instance ids that persist over the clip's frames,
+    moving 1 m a frame, their futures and occupancy, map elements and the
+    ego's plan."""
+    from vidar_tpu_torch.core.bbox import normalize_bbox
+    from vidar_tpu_torch.uniad.loss import UniADTargets
+    predict_steps = model.predict_steps
+    occ_frames = model.occ_head.n_future_blocks - 1
+    plan_steps = model.planning_head.planning_steps
+    hh, ww = model.bev_h, model.bev_w
+    boxes = np.zeros((1, max_gt, 9), np.float32)
+    boxes[0, :num_gt, :2] = rng.uniform(-45, 45, (num_gt, 2))
+    boxes[0, :, 3:6] = rng.uniform(0.5, 4.0, (max_gt, 3))
+    boxes[0, :num_gt, 6] = rng.uniform(-np.pi, np.pi, num_gt)
+    boxes[0, :num_gt, 7:9] = rng.uniform(-5, 5, (num_gt, 2))
+    labels = np.zeros((1, max_gt), np.int32)
+    labels[0, :num_gt] = np.arange(num_gt) % 10
+    tb = np.zeros((1, frames, max_gt, 10), np.float32)
+    for t in range(frames):
+        b9 = boxes[0].copy()
+        b9[:, 0] += t - frames + 1
+        tb[0, t] = normalize_bbox(torch.from_numpy(b9)).numpy()
+    ids = np.full((1, frames, max_gt), -1, np.int32)
+    ids[0, :, :num_gt] = np.arange(num_gt)
+    occ = np.zeros((1, max_gt, occ_frames, hh, ww), np.float32)
+    occ[0, :num_gt, :, hh // 2 - hh // 20:hh // 2 + hh // 20 + 1,
+        ww // 2 - ww // 20:ww // 2 + ww // 20 + 1] = 1.0
+    map_masks = np.zeros((1, max_map, hh, ww), np.float32)
+    map_masks[0, :map_gt, ::7] = 1.0
+    ego = np.zeros((frames, 3, 3), np.float32)
+    ego[:] = np.eye(3)
+    arrays = dict(
+        gt_boxes=boxes, gt_labels=labels,
+        num_valid_gt=np.array([num_gt], np.int32),
+        map_boxes=rng.uniform(0.2, 0.8, (1, max_map, 4)).astype(np.float32),
+        map_labels=(np.arange(max_map, dtype=np.int32) % 3)[None],
+        num_valid_map=np.array([map_gt], np.int32),
+        gt_traj=np.cumsum(rng.normal(0, 1, (1, max_gt, predict_steps, 2)),
+                          2).astype(np.float32),
+        gt_traj_valid=np.ones((1, max_gt, predict_steps), np.float32),
+        sdc_traj=np.stack([np.zeros(plan_steps), 2.0 * np.arange(
+            1, plan_steps + 1), np.zeros(plan_steps)], -1)[None].astype(
+                np.float32),
+        sdc_mask=np.ones((1, plan_steps), np.float32),
+        gt_occ=occ, map_masks=map_masks, track_boxes=tb,
+        track_labels=np.repeat(labels[:, None], frames, 1), track_ids=ids,
+        track_num=np.full((1, frames), num_gt, np.int32),
+        l2g_r=ego[None], l2g_t=np.zeros((1, frames, 3), np.float32),
+        timestamp=(0.5 * np.arange(frames, dtype=np.float32))[None])
+    return UniADTargets(**{k: torch.from_numpy(v).to(dev)
+                           for k, v in arrays.items()})
+
+
+def _uniad_fixture(pkl, root):
+    """Phase 9's fixture as UniAD reads it: its first sample's GT boxes
+    persist through the scene as the same instances (``gt_instance_tokens``),
+    each moving by its velocity. -> the pkl's path."""
+    with open(pkl, 'rb') as f:
+        data = pickle.load(f)
+    base = data['infos'][0]
+    for i, info in enumerate(data['infos']):
+        boxes = base['gt_boxes'].copy()
+        boxes[:, :2] += 0.5 * i * base['gt_velocity']
+        info.update(gt_boxes=boxes, gt_names=base['gt_names'],
+                    gt_velocity=base['gt_velocity'],
+                    gt_attrs=base['gt_attrs'],
+                    num_lidar_pts=base['num_lidar_pts'],
+                    valid_flag=base['valid_flag'],
+                    gt_instance_tokens=np.array(
+                        [f'inst{k}' for k in range(len(boxes))]))
+    out = os.path.join(root, 'infos_uniad.pkl')
+    with open(out, 'wb') as f:
+        pickle.dump(data, f)
+    return out
+
+
+def _phase11(counted, card, check, tmp, fixture_pkl, dev='cuda:0'):
+    """UniAD at the released widths (``vidar_e2e.py``: embed 256, BEV
+    200x200, 900 track queries, 300 map queries, 6 cameras, R101 with DCN
+    in stages 3-4, latent rendering at layer 2, 12 steps x 6 modes), f32,
+    ``init_weights_`` from seed 0. a: the library: 3 streamed eval frames
+    on a synthetic batch of 6 x 928x1600, a fourth timed stage by stage,
+    then the clip train step at the
+    config's frame count or the largest that fits; b: the train CLI on
+    ``vidar_e2e.py`` (2 steps) and its UniAD eval (4 samples of one
+    scene), ``base_track_map.py`` (1 step), on phase 9's JPEG fixture made
+    UniAD's (``_uniad_fixture``). ``check`` holds every kernel of the
+    library path and of the e2e train and eval runs against its plain
+    version on their kept inputs. -> {path: {kernel: launches}}."""
+    from vidar_tpu_torch.core.builder import build_model
+    from vidar_tpu_torch.core.config import apply_overrides, load_config
+    from vidar_tpu_torch.data import make_synthetic_batch
+    from vidar_tpu_torch.ops import dcn, latent_render, msda
+    from vidar_tpu_torch.tools import test as test_cli
+    from vidar_tpu_torch.tools import train as train_cli
+    from vidar_tpu_torch.train import UniADTrainStep, make_optimizer
+    from vidar_tpu_torch.uniad import planning_head
+
+    dev = torch.device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    forward = [msda.KERNEL, dcn.SAMPLE, latent_render.FIRST_HIT,
+               latent_render.AGGREGATE]
+    backward = [msda.BACKWARD, latent_render.FIRST_HIT_BACKWARD,
+                latent_render.AGGREGATE_BACKWARD]
+    runs = {}
+
+    def need(name, kernels, launches):
+        runs[name] = launches
+        never = [k.name for k in kernels if launches[k.name] <= 0]
+        if never:
+            raise RuntimeError(f'phase 11 {name}: kernels {never} never '
+                               f'launched')
+        if launches[dcn.KERNEL.name] or launches[dcn.SAMPLE16.name]:
+            raise RuntimeError(f'phase 11 {name}: the f32 UniAD ran a bf16 '
+                               f'kernel (K2 or K10)')
+
+    cfg = load_config(str(UNIAD_E2E_CONFIG))
+    mcfg = cfg['model']
+    frames_cfg = cfg['data']['train']['queue_length'] + 1
+    model = build_model(mcfg, device=dev)
+    model.init_weights_(torch.Generator(device=dev).manual_seed(0))
+    model.eval()
+    print(f'phase 11: UniAD ({UNIAD_E2E_CONFIG.relative_to(ROOT)}), f32, '
+          f'{sum(p.numel() for p in model.parameters())} parameters',
+          flush=True)
+
+    # -- 11a: 3 streamed eval frames on a synthetic batch
+    ih, iw = UNIAD_IMAGE
+    batch = make_synthetic_batch(np.random.default_rng(0), bs=1,
+                                 queue_length=0, future_length=1,
+                                 num_cams=UNIAD_CAMS, img_h=ih, img_w=iw,
+                                 max_points=64, device=dev)
+    command = torch.tensor([2], dtype=torch.int32, device=dev)
+    keepers = _uniad_keepers(mcfg, 'uniad_eval', train=False)
+
+    def stream():
+        outs, times = [], []
+        tracks, prev_bev = model.init_stream(1, dev)
+        with torch.inference_mode():
+            for k in range(3):
+                t0 = time.perf_counter()
+                b = dataclasses.replace(
+                    batch, can_bus=batch.can_bus + 2.0 * k,
+                    rotate_angle=batch.rotate_angle + 1.0 * k)
+                out = model(b, tracks, prev_bev,
+                            torch.full((1,), k > 0, device=dev), command)
+                tracks, prev_bev = out['tracks'], out['bev']
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                outs.append(out)
+        return outs, times
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (outs, times), launches = _run_counted(counted, keepers, stream)
+    peak = torch.cuda.max_memory_allocated()
+    need('uniad_eval', forward, launches)
+    out = outs[-1]
+    for name, t in (('det', out['det']['all_bbox_preds']),
+                    ('motion', out['motion']['all_traj_preds']),
+                    ('occ', out['occ']['ins_occ_logits']),
+                    ('plan', out['plan']['sdc_traj']),
+                    ('seg', out['seg']['outputs_coords'])):
+        if not bool(torch.isfinite(t).all()):
+            raise RuntimeError(f'phase 11a: non-finite {name} outputs')
+    want = (3, 1, model.num_query + 1, model.motion_head.num_anchor,
+            model.predict_steps, 5)
+    if tuple(out['motion']['all_traj_preds'].shape) != want:
+        raise RuntimeError('phase 11a: motion outputs of shape '
+                           f'{tuple(out["motion"]["all_traj_preds"].shape)}')
+    print(f'uniad eval (3 streamed frames, {UNIAD_CAMS} x {ih}x{iw}): '
+          f'{" ".join(f"{t:.4f}" for t in times)} s/frame (the first with '
+          f'warm-up); peak memory {peak / 2**30:.2f} GiB; tracks alive '
+          f'{int((out["tracks"].obj_idxes >= 0).sum())}; launches '
+          f'{json.dumps(launches)} on {card}', flush=True)
+    tracks, prev_bev = out['tracks'], out['bev']
+    del outs, out
+    check('uniad_eval', keepers, launches)
+
+    # -- 11a: where a frame's time goes: a fourth frame, stage by stage
+    torch.backends.cudnn.allow_tf32 = False      # check turned it back on
+    trk = model.track
+    stages = [(trk, 'backbone_forward', 'backbone+FPN'),
+              (trk.pts_bbox_head_bev, 'forward', 'BEV encoder'),
+              (trk.det_head, 'forward', 'track decoder'),
+              (trk.tracker, 'update', 'tracker'),
+              (model.seg_head, 'forward', 'panoptic head'),
+              (model.motion_head, 'forward', 'motion head'),
+              (model.occ_head, 'forward', 'occupancy head'),
+              (model.planning_head, 'forward', 'planning head'),
+              (trk, 'refresh_tracks', 'memory bank+QIM')]
+    top = len(stages)
+    occ, plan = model.occ_head, model.planning_head
+    # inside the two heads at the full map (occupancy, planning)
+    stages += [(occ.dense_decoder, 'forward', 'occupancy: dense decoder')]
+    stages += [(getattr(occ, n), 'forward', 'occupancy: transformer layers')
+               for n, _ in occ.named_children()
+               if n.startswith('trans_layers_')]
+    stages += [(plan.attn_module, 'forward', 'planning: attention'),
+               (planning_head, 'collision_optimize',
+                'planning: collision optimisation')]
+    stages += [(getattr(plan, f'bev_adapter_{i}'), 'forward',
+                'planning: BEV adapter') for i in range(3)]
+    with torch.inference_mode():
+        b = dataclasses.replace(batch, can_bus=batch.can_bus + 6.0,
+                                rotate_angle=batch.rotate_angle + 3.0)
+        by_stage, frame_ms = _stage_times(stages, lambda: model(
+            b, tracks, prev_bev, torch.ones(1, dtype=torch.bool, device=dev),
+            command))
+    del tracks, prev_bev
+    by_stage['rest'] = frame_ms - sum(by_stage[name]
+                                      for _, _, name in stages[:top])
+    print('uniad eval frame by stage (a fourth streamed frame, CUDA events, '
+          f'ms): {json.dumps({k: round(v, 3) for k, v in by_stage.items()})}'
+          f'; whole frame {frame_ms:.3f} ms on {card}', flush=True)
+
+    # -- 11a: the clip train step, at the config's frames or fewer
+    torch.backends.cudnn.allow_tf32 = False      # check turned it back on
+    model.train()
+    step = UniADTrainStep(model, make_optimizer(model, device=dev),
+                          task_loss_weight=mcfg['task_loss_weight'],
+                          device=dev)
+    frames_used = None
+    for n_frames in range(frames_cfg, UNIAD_MIN_FRAMES - 1, -1):
+        clip = make_synthetic_batch(np.random.default_rng(1), bs=1,
+                                    queue_length=n_frames - 1,
+                                    future_length=1, num_cams=UNIAD_CAMS,
+                                    img_h=ih, img_w=iw, max_points=64,
+                                    device=dev)
+        targets = _uniad_targets(np.random.default_rng(2), n_frames, dev,
+                                 model)
+        keepers = _uniad_keepers(mcfg, 'uniad_train', train=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            t0 = time.perf_counter()
+            metrics, launches = _run_counted(
+                counted, keepers, lambda: step((clip, targets, command)))
+        except torch.cuda.OutOfMemoryError as e:
+            print(f'uniad clip step at {n_frames} frames: out of device '
+                  f'memory ({str(e).splitlines()[0][:160]})', flush=True)
+            del clip, targets, keepers
+            model.zero_grad(set_to_none=True)
+            step.optimizer.zero_grad(set_to_none=True)
+            continue
+        frames_used = n_frames
+        break
+    if frames_used is None:
+        raise RuntimeError('phase 11a: the clip step fits at no frame count')
+    warm_s = time.perf_counter() - t0
+    warm_peak = torch.cuda.max_memory_allocated()
+    need('uniad_train', forward + backward, launches)
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise RuntimeError(f'phase 11a: non-finite step metrics {metrics}')
+    cut_note = ('' if frames_used == frames_cfg else
+                ', cut: out of memory at more')
+    print(f'uniad clip step 1 (warm-up): {frames_used} frames (the '
+          f'config\'s {frames_cfg}{cut_note}), {warm_s:.3f} s, peak memory '
+          f'{warm_peak / 2**30:.2f} GiB; metrics {json.dumps(metrics)}; '
+          f'launches {json.dumps(launches)}', flush=True)
+    check('uniad_train', keepers, launches)
+    torch.backends.cudnn.allow_tf32 = False
+    del keepers
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics = step((clip, targets, command))
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise RuntimeError(f'phase 11a: non-finite step metrics {metrics}')
+    print(f'uniad clip step 2: {step_s:.4f} s/it, peak memory '
+          f'{peak / 2**30:.2f} GiB ({frames_used} frames x {UNIAD_CAMS} x '
+          f'{ih}x{iw}, 40 agents) on {card}', flush=True)
+    del model, step, clip, targets, batch
+    torch.cuda.empty_cache()
+
+    # -- 11b: the CLIs, as phase 9 runs them (PyTorch's default switches)
+    torch.backends.cudnn.allow_tf32 = True
+    pkl = _uniad_fixture(fixture_pkl, tmp)
+    data = [f'data.{s}.{k}={v}' for s in ('train', 'test')
+            for k, v in (('ann_file', pkl), ('data_root', tmp))]
+    cut = ([] if frames_used == frames_cfg else
+           [f'data.train.queue_length={frames_used - 1}'])
+    if cut:
+        print(f'phase 11b: depth cut {cut} (the train split\'s clip, out '
+              f'of memory at {frames_used + 1} frames in 11a)', flush=True)
+
+    def run(name, fn, argv, kernels, keepers=None):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out, launches = _run_counted(counted, keepers or {},
+                                     lambda: fn(argv))
+        print(f'cli {name}: {time.perf_counter() - t0:.2f} s wall, peak '
+              f'device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}'
+              f' GiB, launches {json.dumps(launches)} on {card}',
+              flush=True)
+        need(f'cli_{name}', kernels, launches)
+        return out
+
+    work = f'{tmp}/uniad_e2e'
+    keepers = _uniad_keepers(mcfg, 'cli_uniad_e2e', train=True)
+    out = run('uniad_e2e', train_cli.main,
+              [str(UNIAD_E2E_CONFIG), '--work-dir', work, '--max-steps',
+               '2', '--cfg-options', *data, *cut, 'log_interval=1'],
+              forward + backward, keepers)
+    _train_log('uniad_e2e', out, 2)
+    check('cli_uniad_e2e', keepers, runs['cli_uniad_e2e'])
+    keepers = _uniad_keepers(mcfg, 'cli_uniad_eval', train=False)
+    metrics = run('uniad_eval', test_cli.main,
+                  [str(UNIAD_E2E_CONFIG), f'{work}/latest', '--max-samples',
+                   '4', '--out', f'{tmp}/uniad.json', '--cfg-options',
+                   *data], forward, keepers)
+    _finite_metrics('uniad_eval', metrics, UNIAD_KEYS)
+    print('cli uniad_eval: ' + ', '.join(f'{k} {float(metrics[k]):.4f}'
+                                         for k in UNIAD_KEYS), flush=True)
+    check('cli_uniad_eval', keepers, runs['cli_uniad_eval'])
+    shutil.rmtree(work)
+    out = run('uniad_track_map', train_cli.main,
+              [str(UNIAD_TRACK_MAP_CONFIG), '--work-dir',
+               f'{tmp}/uniad_track_map', '--max-steps', '1',
+               '--cfg-options', *data, *cut, 'log_interval=1'],
+              [msda.KERNEL, dcn.SAMPLE, msda.BACKWARD])
+    _train_log('uniad_track_map', out, 1)
+    if runs['cli_uniad_track_map'][latent_render.FIRST_HIT.name]:
+        raise RuntimeError('cli uniad_track_map: the stock encoder ran '
+                           'latent rendering')
+    shutil.rmtree(f'{tmp}/uniad_track_map')
+    return runs
 
 
 # ------------------------------------- phase 10: data parallelism
@@ -2662,6 +3126,12 @@ def main() -> int:
         _phase10c(card, fixture_dir, data)
         print(f'phase 10: {time.perf_counter() - t0:.1f} s', flush=True)
 
+        # -- phase 11: UniAD, the library and the CLIs
+        t0 = time.perf_counter()
+        uniad = _phase11(counted, card, check_cli, fixture_dir,
+                         data[0].split('=', 1)[1])
+        print(f'phase 11: {time.perf_counter() - t0:.1f} s', flush=True)
+
     for r in results:
         base = r['name'].split('[')[0]
         r.setdefault('train_launches', train_launches[base])
@@ -2673,6 +3143,8 @@ def main() -> int:
         for rank, parts in dp.items():
             r[f'dp_rank{rank}_launches'] = parts['pretrain'][base]
             r[f'dp_finetune_rank{rank}_launches'] = parts['finetune'][base]
+        for run, launches in uniad.items():
+            r[f'{run}_launches'] = launches[base]
     print(json.dumps({'kernels': results}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

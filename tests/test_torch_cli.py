@@ -234,7 +234,7 @@ def test_detection_eval(fake, finetuned, streaming, tmp_path):
 def test_builder_contract():
     cfg = load_config(TINY)['model']
     with pytest.raises(KeyError, match='not ported'):
-        build_model(dict(cfg, type='UniAD'), device='cpu')
+        build_model(dict(cfg, type='BEVFormerV2'), device='cpu')
     # the JAX CLI's remat switch is taken and dropped; a dtype string from
     # --cfg-options names a torch dtype
     model = build_model(dict(cfg, remat=True, dtype='bfloat16'),
@@ -245,9 +245,9 @@ def test_builder_contract():
     # (tests/test_torch_pth_import.py), not the directory loader
     with pytest.raises(ValueError, match='.pth'):
         load_params_partial('weights.pth', model)
-    with pytest.raises(NotImplementedError, match='UniAD'):
-        test_cli.main([str(ROOT / 'configs' / 'tiny' / 'uniad_tiny.py'),
-                       '--device', 'cpu'])
+    # UniAD builds (its CLIs: tests/test_torch_uniad_cli.py)
+    uniad = load_config(str(ROOT / 'configs' / 'tiny' / 'uniad_tiny.py'))
+    assert type(build_model(uniad['model'], device='cpu')).__name__ == 'UniAD'
 
 
 @pytest.mark.parametrize('flag', [['--viz-pcd'], ['--viz-path', 'dbg']],

@@ -684,6 +684,43 @@ def test_msda_backward_kernel_matches_plain(dev, case):
     assert _rel_err(dw, want[2]) <= 1e-4
 
 
+def _motion_msda_inputs(rng, dev, q=64872):
+    """UniAD's motion-head call: 901 agents x 6 modes x 12 steps folded
+    into one query axis over one 200x200 BEV level, 8 heads x 32 dims, 4
+    points; endpoints near and off the map's border."""
+    shapes, heads, dim, p = [(200, 200)], 8, 32, 4
+    value = _t(rng.standard_normal((1, 40000, heads, dim)), dev)
+    loc = _t(rng.uniform(-0.05, 1.05, (1, q, heads, 1, p, 2)), dev)
+    w = rng.uniform(size=(1, q, heads, p))
+    w = _t((w / w.sum(-1, keepdims=True)).reshape(1, q, heads, 1, p), dev)
+    g = _t(rng.standard_normal((1, q, heads * dim)), dev)
+    return shapes, value, loc, w, g
+
+
+def test_msda_kernels_at_the_motion_shape(dev):
+    """K1 and K5 at one level with more than 60,000 queries (UniAD's
+    motion head, 64,872), against the plain version and its autograd."""
+    shapes, value, loc, w, g = _motion_msda_inputs(
+        np.random.default_rng(21), dev)
+    before = (msda.KERNEL.launches, msda.BACKWARD.launches)
+    got = msda.msda_forward_cuda(value, shapes, loc, w)
+    want = msda.msdeform_attn_plain(value, shapes, loc, w)
+    torch.cuda.synchronize()
+    # f32 sums of 4 samples x 4 corners in another order
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5 + 1e-4 * want.abs().max().item(), err
+    dv, dl, dw = msda.msda_backward_cuda(value, shapes, loc, w, g)
+    want = _plain_grads(
+        lambda v, lo, aw: msda.msdeform_attn_plain(v, shapes, lo, aw),
+        (value, loc, w), g)
+    torch.cuda.synchronize()
+    assert (msda.KERNEL.launches, msda.BACKWARD.launches) == (
+        before[0] + 1, before[1] + 1)
+    # f32 atomic sums in another order
+    for got_g, want_g in zip((dv, dl, dw), want):
+        assert _rel_err(got_g, want_g) <= 1e-4
+
+
 def _msda_inputs(rng, case, dim, dtype, dev, b=None):
     """A TSA-like (one level, P = 4) or SCA-like (four levels, P = 8) call
     with a Q that leaves the last block ragged, samples off the map on every

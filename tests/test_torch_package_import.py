@@ -22,6 +22,14 @@ def test_imports_without_jax():
     assert 'vidar_tpu_torch.ops.msda' in mods
     assert {'vidar_tpu_torch.parallel', 'vidar_tpu_torch.parallel.mesh',
             'vidar_tpu_torch.parallel.multihost'} <= set(mods)
+    # UniAD and what its CLI paths import
+    assert {'vidar_tpu_torch.uniad', 'vidar_tpu_torch.uniad.uniad',
+            'vidar_tpu_torch.uniad.loss', 'vidar_tpu_torch.uniad.metrics',
+            'vidar_tpu_torch.uniad.motion_optimization',
+            'vidar_tpu_torch.data.uniad_data',
+            'vidar_tpu_torch.data.rasterize',
+            'vidar_tpu_torch.evals.tracking',
+            'vidar_tpu_torch.models.position_embedding'} <= set(mods)
     code = ("import sys\n"
             "for name in ('jax', 'jaxlib', 'flax', 'PIL'):\n"
             "    sys.modules[name] = None\n"

@@ -1,5 +1,5 @@
-"""Weight bridge: a JAX/flax ``ViDAR`` or ``BEVFormer`` parameter tree -> a
-state dict that the port's model of the same name loads with
+"""Weight bridge: a JAX/flax ``ViDAR``, ``BEVFormer`` or ``UniAD`` parameter
+tree -> a state dict that the port's model of the same name loads with
 ``strict=True``.
 
 The port names its modules after the flax modules, so a key is the flax
@@ -15,7 +15,7 @@ path joined by dots, with the leaf renamed and transformed:
 * any other ``kernel`` (a Dense), [in, out] -> ``weight`` [out, in];
 * ``scale``/``bias`` of a frozen BatchNorm (``bn*``, ``downsample_bn``)
   -> the buffers ``scale``/``bias``;
-* ``scale`` of a LayerNorm -> ``weight``;
+* ``scale`` of a LayerNorm or GroupNorm -> ``weight``;
 * ``bias`` and the embedding tables keep their names.
 """
 

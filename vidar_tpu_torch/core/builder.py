@@ -14,15 +14,17 @@ MODELS: Dict[str, Callable] = {}
 DATASETS: Dict[str, Callable] = {}
 
 # registered by the JAX package's builder, not ported yet (ROADMAP.md queue 1)
-NOT_PORTED = ('BEVFormerV2', 'UniAD', 'UniADTrack', 'UniADDataset')
+NOT_PORTED = ('BEVFormerV2',)
 
 
 def _model_registry():
     if not MODELS:
         from ..models import BEVFormer, BEVFormerFP16, ViDAR
+        from ..uniad import UniAD, UniADTrack
         MODELS.update(ViDAR=ViDAR, BEVFormer=BEVFormer,
                       BEVFormer_fp16=BEVFormerFP16,
-                      BEVFormerFP16=BEVFormerFP16)
+                      BEVFormerFP16=BEVFormerFP16, UniAD=UniAD,
+                      UniADTrack=UniADTrack)
     return MODELS
 
 
@@ -30,6 +32,7 @@ def _dataset_registry():
     if not DATASETS:
         from ..data.nuplan import NuPlanViDARDataset
         from ..data.nuscenes import NuScenesDetDataset, NuScenesViDARDataset
+        from ..data.uniad_data import UniADDataset
         DATASETS.update(
             NuScenesViDARDatasetV1=NuScenesViDARDataset,
             NuScenesViDARDataset=NuScenesViDARDataset,
@@ -37,6 +40,7 @@ def _dataset_registry():
             NuScenesDetDataset=NuScenesDetDataset,
             NuPlanViDARDatasetV1=NuPlanViDARDataset,
             NuPlanViDARDataset=NuPlanViDARDataset,
+            UniADDataset=UniADDataset,
         )
     return DATASETS
 

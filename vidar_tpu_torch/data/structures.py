@@ -55,16 +55,20 @@ class DetBatch:
 
 
 def collate_samples(items):
-    """Concatenate bs=1 samples (``ViDARBatch`` or ``DetBatch``) along the
-    batch axis into one batch (the port of vidar_tpu/data/structures.py:
-    59, the train CLI's batch assembly)."""
+    """Concatenate bs=1 samples along the batch axis into one batch (the
+    port of vidar_tpu/data/structures.py:59, the train CLI's batch
+    assembly): ``ViDARBatch``, ``DetBatch``, a UniAD sample's ``(frames,
+    UniADTargets, command)`` tuple, field by field (a field None in every
+    sample stays None)."""
     if len(items) == 1:
         return items[0]
     first = items[0]
-    cls = type(first)
-    return cls(**{f.name: (collate_samples([getattr(x, f.name)
-                                            for x in items])
-                           if dataclasses.is_dataclass(getattr(first, f.name))
-                           else torch.cat([getattr(x, f.name)
-                                           for x in items]))
-                  for f in dataclasses.fields(first)})
+    if first is None:
+        return None
+    if torch.is_tensor(first):
+        return torch.cat(items)
+    if isinstance(first, tuple):
+        return tuple(collate_samples(list(x)) for x in zip(*items))
+    return type(first)(**{
+        f.name: collate_samples([getattr(x, f.name) for x in items])
+        for f in dataclasses.fields(first)})

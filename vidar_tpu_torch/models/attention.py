@@ -252,15 +252,19 @@ class PredictionMSDeformableAttention(nn.Module):
         self.drop = nn.Dropout(DROPOUT)
 
     def forward(self, query, value, reference_points,
-                spatial_shapes: Sequence[Tuple[int, int]], query_pos):
+                spatial_shapes: Sequence[Tuple[int, int]], query_pos=None,
+                identity=None):
         """query [bs, Q, C]; value [bs, V, C] or None (self-attention);
         reference_points [bs, Q, num_levels, 2] in [0, 1]; query_pos
-        [bs, Q, C]."""
+        [bs, Q, C] added to the query, where given; identity, the residual,
+        the query where not given."""
         bs, num_query, _ = query.shape
         if value is None:
             value = query
-        identity = query
-        query = query + query_pos
+        if identity is None:
+            identity = query
+        if query_pos is not None:
+            query = query + query_pos
         h, lv, p = self.num_heads, self.num_levels, self.num_points
         offsets = self.proj.sampling_offsets(query).reshape(
             bs, num_query, h, lv, p, 2)

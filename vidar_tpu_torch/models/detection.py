@@ -115,17 +115,22 @@ class BEVFormerHead(nn.Module):
             x = torch.relu(getattr(self, f'reg_branches_{lid}_fc{i}')(x))
         return getattr(self, f'reg_branches_{lid}_out')(x)
 
-    def forward(self, bev_embed: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, bev_embed: torch.Tensor, query_embeds=None,
+                ref_points=None) -> Dict[str, torch.Tensor]:
         """bev_embed [bs, H*W, C] -> dict(all_cls_scores [layers, bs, Q,
         classes], all_bbox_preds [layers, bs, Q, 10], bev_embed,
-        query_feats [bs, Q, C], last_ref_points [bs, Q, 3])."""
+        query_feats [bs, Q, C], last_ref_points [bs, Q, 3]).
+        ``query_embeds`` [bs, Q, 2C] (UniAD's track queries) replace the
+        learned queries, and ``ref_points`` [bs, Q, 3] (sigmoid space) the
+        reference points derived from them, where given."""
         bs = bev_embed.shape[0]
-        query_pos, query = torch.split(
-            self.query_embedding.to(bev_embed.dtype),
-            self.query_embedding.shape[1] // 2, dim=1)
-        query_pos = query_pos[None].expand(bs, *query_pos.shape)
-        query = query[None].expand(bs, *query.shape)
-        ref = torch.sigmoid(self.reference_points(query_pos))   # [bs, Q, 3]
+        if query_embeds is None:
+            query_embeds = self.query_embedding[None].expand(
+                bs, *self.query_embedding.shape)
+        query_pos, query = torch.split(query_embeds.to(bev_embed.dtype),
+                                       query_embeds.shape[-1] // 2, dim=-1)
+        ref = (torch.sigmoid(self.reference_points(query_pos))
+               if ref_points is None else ref_points)         # [bs, Q, 3]
         pc = self.pc_range
         cls_out, bbox_out = [], []
         for lid in range(NUM_DECODER_LAYERS):

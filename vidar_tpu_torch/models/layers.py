@@ -111,14 +111,19 @@ class FFN(nn.Module):
 
 class MultiHeadDotProductAttention(nn.Module):
     """flax ``nn.MultiHeadDotProductAttention`` with ``qkv_features`` =
-    ``out_features`` = ``embed_dims`` and no attention dropout: the query,
-    key and value projections (flax's DenseGeneral kernels [E, heads,
-    head_dim], here ``Dense`` over the flattened heads), scaled dot products
-    by 1/sqrt(head_dim), a softmax in f32, and the output projection
-    ``out``. ``forward(inputs_q, inputs_k, inputs_v)``, [bs, L, E] each."""
+    ``out_features`` = ``embed_dims``: the query, key and value projections
+    (flax's DenseGeneral kernels [E, heads, head_dim], here ``Dense`` over
+    the flattened heads), scaled dot products by 1/sqrt(head_dim), a softmax
+    in f32, and the output projection ``out``. ``forward(inputs_q,
+    inputs_k, inputs_v, mask=None)``, [..., L, E] each, any leading batch
+    dims (the key's and value's broadcast against the query's);
+    ``mask`` (True = attend) broadcasts to [..., heads, Lq, Lk], and a
+    masked logit takes the dtype's lowest value, as flax's. ``dropout`` is
+    flax's ``dropout_rate``: dropout on the attention weights under
+    ``train()``."""
 
     def __init__(self, embed_dims: int, num_heads: int, dtype=None,
-                 device=None):
+                 device=None, dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         kw = dict(dtype=dtype, device=device)
@@ -126,20 +131,27 @@ class MultiHeadDotProductAttention(nn.Module):
         self.key = Dense(embed_dims, embed_dims, **kw)
         self.value = Dense(embed_dims, embed_dims, **kw)
         self.out = Dense(embed_dims, embed_dims, **kw)
+        self.drop = nn.Dropout(dropout) if dropout else None
 
-    def forward(self, inputs_q, inputs_k, inputs_v):
-        bs, lq, e = inputs_q.shape
+    def forward(self, inputs_q, inputs_k, inputs_v, mask=None):
+        *lead, lq, e = inputs_q.shape
         h = self.num_heads
 
-        def heads(proj, x):        # -> [bs, heads, L, head_dim]
-            return proj(x).reshape(bs, x.shape[1], h, e // h).transpose(1, 2)
+        def heads(proj, x):        # -> [..., heads, L, head_dim]
+            return proj(x).reshape(*x.shape[:-1], h, e // h).transpose(-2,
+                                                                       -3)
 
         q = heads(self.query, inputs_q)
         k = heads(self.key, inputs_k)
         v = heads(self.value, inputs_v)
         q = q / (e // h) ** 0.5
-        attn = torch.softmax((q @ k.transpose(-1, -2)).float(), dim=-1)
-        out = (attn.to(v.dtype) @ v).transpose(1, 2).reshape(bs, lq, e)
+        logits = (q @ k.transpose(-1, -2)).float()
+        if mask is not None:
+            logits = logits.masked_fill(~mask, torch.finfo(logits.dtype).min)
+        attn = torch.softmax(logits, dim=-1)
+        if self.drop is not None:
+            attn = self.drop(attn)
+        out = (attn.to(v.dtype) @ v).transpose(-2, -3).reshape(*lead, lq, e)
         return self.out(out)
 
 

@@ -69,10 +69,10 @@ class CameraModel:
         U(+-1/sqrt(fan_in)) (``resnet.py:_conv_kernel_init``), other
         matrices Xavier-uniform, embeddings N(0, 1), biases 0, norm scales
         1; the deformable convs' offset convs 0 and the deformable
-        attentions' offset and weight projections as Deformable DETR
-        (``attention.py:_DeformProj``); buffers (the frozen BatchNorms) as
+        attentions' offset and weight projections as Deformable DETR (each
+        module's ``init_offsets_``: ``attention.py:_DeformProj``, UniAD's
+        ``MotionDeformableAttention``); buffers (the frozen BatchNorms) as
         built."""
-        from .attention import _DeformProj
 
         def draw(shape):
             return torch.rand(shape, generator=generator,
@@ -96,7 +96,7 @@ class CameraModel:
             else:
                 p.fill_(1.0)
         for m in self.modules():
-            if isinstance(m, _DeformProj):
+            if hasattr(m, 'init_offsets_'):
                 m.init_offsets_()
         return self
 

@@ -7,7 +7,9 @@ aggregated like the reference (SURVEY §3.3), with challenge submission
 dumps (``--submission``, reference vidar.py:504-519). A ``BEVFormer``
 config runs the detection eval instead: the full window, or ``--streaming``
 frame by frame on the cached BEV, through ``DetectionRunner``, then NDS /
-mAP.
+mAP. A ``UniAD`` config streams the tracker over each scene and reports
+``amota``, ``amotp``, ``NDS``, ``minADE``, ``planning.L2`` and
+``planning.obj_box_col`` among its metrics (one process only).
 
 Usage:
   python -m vidar_tpu_torch.tools.test CONFIG [CHECKPOINT_DIR | PTH]
@@ -38,6 +40,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..core import bbox as bbox_core
 from ..core.builder import build_dataset, build_model
 from ..core.checkpoint import import_torch_checkpoint, load_params_partial
 from ..core.config import apply_overrides, load_config
@@ -98,6 +101,15 @@ def save_submission(pred_dist, frame_idx, sample_idx, out_dir):
         with open(path, 'w') as fh:
             for v in d:
                 fh.write(f'{v:f}\n')
+
+
+def refuse_uniad_across_processes():
+    """UniAD runs in one process: its losses do not yet sum their
+    normalisers over the ranks (ROADMAP.md queue 1)."""
+    if world_size() > 1:
+        raise SystemExit('UniAD configs run in one process; --num-processes '
+                         f'{world_size()} is not supported yet (its losses '
+                         'do not sum their normalisers over the ranks)')
 
 
 def load_model_weights(model, checkpoint: Optional[str]):
@@ -169,11 +181,102 @@ def det_eval(args, cfg, model, dataset, device):
     return metrics
 
 
-def uniad_eval(args, cfg):
-    """UniAD's end-to-end eval (vidar_tpu/tools/test.py:179-307): not
-    ported."""
-    raise NotImplementedError('UniAD not ported to vidar_tpu_torch yet '
-                              '(ROADMAP.md queue 1)')
+def uniad_eval(args, cfg, model, dataset, device):
+    """UniAD's end-to-end eval (vidar_tpu/tools/test.py:179-309): the
+    tracker and the previous BEV streamed over each scene (reset at a scene
+    change), then AMOTA / AMOTP (reference nuscenes_e2e_dataset.py:
+    1161-1181), NDS / mAP on the tracked boxes, motion minADE / minFDE / MR
+    / EPA and planning L2 / collision."""
+    from ..evals.tracking import evaluate_tracking
+    from ..uniad.loss import _track_assign
+    from ..uniad.metrics import MotionMetric, PlanningMetric
+
+    n = min(len(dataset), args.max_samples or len(dataset))
+    classes = tuple(cfg['data']['test'].get('classes', CLASS_NAMES))
+    predictions, ground_truth, det_preds, det_gt = {}, {}, {}, {}
+    motion_m = MotionMetric()
+    tp = cfg['model'].get('planning_steps', 6)
+    plan_m = PlanningMetric(n_future=tp)
+    filter_thresh = cfg['model'].get('filter_score_thresh', 0.35)
+    tracks, prev_bev, cur_scene = None, None, None
+    with torch.inference_mode():
+        for i, (frames, targets, command) in enumerate(
+                _samples(dataset, range(n))):
+            scene = dataset.data_infos[dataset.usable_index[i]][
+                'scene_token']
+            exists = torch.full((1,), scene == cur_scene, device=device)
+            if scene != cur_scene:
+                tracks, prev_bev = model.init_stream(1, device)
+                cur_scene = scene
+            out = model(frames.to(device), tracks, prev_bev, exists,
+                        command.to(device), deterministic=True)
+            tracks, prev_bev = out['tracks'], out['bev']
+
+            sel = ((tracks.obj_idxes[0] >= 0) &
+                   (tracks.scores[0] >= filter_thresh)).cpu().numpy()
+            boxes9 = bbox_core.denormalize_bbox(
+                tracks.pred_boxes[0]).cpu().numpy()
+            tok = f's{i}'
+            predictions[tok] = dict(
+                boxes=boxes9[sel], scores=tracks.scores[0].cpu().numpy()[sel],
+                labels=tracks.pred_logits[0].argmax(-1).cpu().numpy()[sel],
+                track_ids=tracks.obj_idxes[0].cpu().numpy()[sel])
+            g = int(targets.num_valid_gt[0])
+            gt_ids = (targets.track_ids[0, -1].numpy()[:g]
+                      if targets.track_ids is not None else np.arange(g))
+            ground_truth[tok] = dict(
+                boxes=targets.gt_boxes[0].numpy()[:g],
+                labels=targets.gt_labels[0].numpy()[:g],
+                track_ids=gt_ids, scene=scene)
+            det_preds[tok] = {k: predictions[tok][k]
+                              for k in ('boxes', 'scores', 'labels')}
+            det_gt[tok] = {k: ground_truth[tok][k]
+                           for k in ('boxes', 'labels')}
+
+            # motion: the agents aligned to gt by the Hungarian match
+            t_dev = targets.to(device)
+            assigned = _track_assign(
+                tracks.pred_logits, tracks.pred_boxes,
+                bbox_core.normalize_bbox(t_dev.gt_boxes), t_dev.gt_labels,
+                t_dev.num_valid_gt)[0].cpu().numpy()
+            motion = out['motion']
+            trajs = motion['all_traj_preds'][-1][0, :-1, ..., :2]
+            scores_m = motion['all_traj_scores'][-1][0, :-1]
+            safe = np.clip(assigned, 0, targets.gt_traj.shape[1] - 1)
+            motion_m.update(trajs.cpu().numpy(), scores_m.cpu().numpy(),
+                            targets.gt_traj[0].numpy()[safe],
+                            targets.gt_traj_valid[0].numpy()[safe],
+                            agent_mask=(assigned >= 0).astype(np.float32))
+
+            # planning: collisions against the gt occupancy, resampled
+            # onto the metric's 200x200 grid
+            seg = targets.gt_occ[0].numpy().max(axis=0)       # [To, H, W]
+            t_occ, hh, ww = seg.shape
+            seg_t = np.zeros((tp, 200, 200), np.float32)
+            yi = (np.arange(200) * hh) // 200
+            xi = (np.arange(200) * ww) // 200
+            for t in range(min(tp, t_occ)):
+                seg_t[t] = seg[t][yi][:, xi]
+            plan_m.update(out['plan']['sdc_traj'][:, :tp].cpu().numpy(),
+                          targets.sdc_traj[:, :tp, :2].numpy(),
+                          targets.sdc_mask[:, :tp].numpy(), seg_t[None])
+            if (i + 1) % 10 == 0:
+                print(f'[{i + 1}/{n}]', flush=True)
+
+    metrics = dict(evaluate_tracking(predictions, ground_truth, classes))
+    det = evaluate_detection(det_preds, det_gt, classes)
+    metrics['NDS'] = det.get('NDS', 0.0)
+    metrics['mAP'] = det.get('mAP', 0.0)
+    metrics.update(motion_m.compute())
+    plan = plan_m.compute()
+    metrics['planning.L2'] = float(np.mean(plan['L2']))
+    metrics['planning.obj_box_col'] = float(np.mean(plan['obj_box_col']))
+    for k, v in metrics.items():
+        print(f'{k}: {float(v):.4f}')
+    if args.out:
+        with open(args.out, 'w') as f:
+            json.dump({k: float(v) for k, v in metrics.items()}, f, indent=2)
+    return metrics
 
 
 def forecast_eval(model, dataset, indices: Sequence[int], num_future: int,
@@ -261,12 +364,15 @@ def main(argv: Optional[Sequence[str]] = None):
 def _evaluate(args):
     device = local_device(args.device)
     cfg = apply_overrides(load_config(args.config), args.cfg_options)
-    if cfg['model'].get('type', 'ViDAR') in ('UniAD', 'UniADTrack'):
-        return uniad_eval(args, cfg)
+    uniad = cfg['model'].get('type', 'ViDAR') == 'UniAD'
+    if uniad:
+        refuse_uniad_across_processes()
     model = build_model(cfg['model'], device=device)
     dataset = build_dataset(cfg['data']['test'])
     load_model_weights(model, args.checkpoint)
     model.eval()
+    if uniad:
+        return uniad_eval(args, cfg, model, dataset, device)
     if isinstance(model, BEVFormer):
         return det_eval(args, cfg, model, dataset, device)
     if cfg['model'].get('_submission'):

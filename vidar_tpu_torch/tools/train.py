@@ -3,8 +3,9 @@ card).
 
 Builds the model and the train split from a config, feeds the epochs'
 samples through the threaded ``PrefetchLoader``, steps ``TrainStep`` (a
-ViDAR pre-training config) or ``DetTrainStep`` (a BEVFormer fine-tune
-config), logs the metrics as JSON lines, evaluates with ``EvalHook`` and
+ViDAR pre-training config), ``DetTrainStep`` (a BEVFormer fine-tune
+config) or ``UniADTrainStep`` (a UniAD config, one process only), logs
+the metrics as JSON lines, evaluates with ``EvalHook`` and
 ``run_val_evaluation``, and writes checkpoint directories (``latest/``,
 ``step_N/``, ``best/``, ``ema_latest/``) under the work dir.
 
@@ -52,10 +53,11 @@ from ..parallel import (add_distributed_args, barrier, broadcast_object,
                         broadcast_parameters_, is_main, local_device,
                         maybe_initialize_distributed, rank, shutdown,
                         world_size)
-from ..train import DetTrainStep, TrainStep, make_optimizer
+from ..train import (DetTrainStep, TrainStep, UniADTrainStep,
+                     make_optimizer)
 from ..train.ema import EMA
 from ..train.eval_hook import EvalHook
-from .test import run_val_evaluation
+from .test import refuse_uniad_across_processes, run_val_evaluation
 
 
 def parse_args(argv: Optional[Sequence[str]] = None):
@@ -99,6 +101,9 @@ def main(argv: Optional[Sequence[str]] = None):
 def _train(args):
     device = local_device(args.device)
     cfg = apply_overrides(load_config(args.config), args.cfg_options)
+    uniad = cfg['model'].get('type', 'ViDAR') == 'UniAD'
+    if uniad:
+        refuse_uniad_across_processes()
     work_dir = args.work_dir or cfg.get('work_dir') or os.path.join(
         'work_dirs', os.path.splitext(os.path.basename(args.config))[0])
     if is_main():
@@ -195,6 +200,10 @@ def _train(args):
     if isinstance(model, BEVFormer):
         step_fn = DetTrainStep(model, optimizer, generator=generator,
                                device=device)
+    elif uniad:
+        step_fn = UniADTrainStep(
+            model, optimizer, device=device,
+            task_loss_weight=cfg['model'].get('task_loss_weight'))
     else:
         gate_generator = (None if world_size() == 1 else torch.Generator(
             device=device).manual_seed(args.seed))

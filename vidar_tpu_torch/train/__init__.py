@@ -1,10 +1,11 @@
 """Training of the port: the optimizer of the reference recipe
 (``make_optimizer``, whose defaults are also the fine-tune's: lr 2e-4,
 weight decay 0.01, backbone lr x 0.1, clip 35), the pre-training step
-(``TrainStep``) and the detection fine-tune step (``DetTrainStep``)."""
+(``TrainStep``), the detection fine-tune step (``DetTrainStep``) and
+UniAD's end-to-end step (``UniADTrainStep``)."""
 
 from .optim import AdamW, cosine_annealing_schedule, make_optimizer
-from .step import DetTrainStep, TrainStep
+from .step import DetTrainStep, TrainStep, UniADTrainStep
 
-__all__ = ['AdamW', 'DetTrainStep', 'TrainStep', 'cosine_annealing_schedule',
-           'make_optimizer']
+__all__ = ['AdamW', 'DetTrainStep', 'TrainStep', 'UniADTrainStep',
+           'cosine_annealing_schedule', 'make_optimizer']

@@ -9,9 +9,15 @@ from lr / 3.
 The update is optax's chain, step for step: clip by the global norm
 (``g * 35 / norm`` above 35: optax's form, not ``clip_grad_norm_``'s
 ``norm + 1e-6``), Adam moments with bias correction, the decayed weights
-added to the update, then the scheduled rate. The frozen BatchNorms are
-buffers in the port (the JAX package's ``frozen`` group, set to zero), so
-they are in no group. A parameter without a gradient counts as a zero
+added to the update, then the scheduled rate. The parameters are labelled
+by name as the JAX package's ``label_fn`` labels their paths
+(vidar_tpu/train/optim.py:57-66): ``backbone`` wherever the name holds
+``img_backbone`` (UniAD's ``track.img_backbone`` too), ``frozen`` (no
+update) where a module on the path is named ``bn*`` or ``downsample_bn``.
+The frozen BatchNorms are buffers in the port, so they are in no group;
+the one parameter that rule freezes is UniAD's occupancy-head
+``bn_skip_proj`` GroupNorm, which the JAX package freezes by its name. A
+parameter without a gradient counts as a zero
 gradient, as in JAX: the stem and stage-1 weights under ``frozen_stages``
 still decay (vidar_tpu/train/optim.py:57-66 labels them ``backbone``).
 """
@@ -99,18 +105,29 @@ def make_optimizer(model: torch.nn.Module, *, base_lr: float = 2e-4,
                    weight_decay: float = 0.01, backbone_lr_mult: float = 0.1,
                    grad_clip_norm: float = 35.0, total_steps: int = 100_000,
                    warmup_iters: int = 500, device='cuda') -> AdamW:
-    """AdamW over ``model``'s parameters in two groups, ``main`` and
-    ``backbone`` (``img_backbone.*``, lr x ``backbone_lr_mult``). The
+    """AdamW over ``model``'s parameters in three groups, ``main``,
+    ``backbone`` (lr x ``backbone_lr_mult``) and ``frozen`` (no update),
+    labelled as the module docstring says. The
     parameters must lie on ``device`` (the card unless the caller asks for
     the CPU)."""
     device = resolve_device(device)
-    main, backbone = [], []
+    main, backbone, frozen = [], [], []
     for name, p in model.named_parameters():
         if p.device.type != device.type:
             raise ValueError(f'make_optimizer: {name} is on {p.device}, '
                              f'not {device}')
-        (backbone if name.startswith('img_backbone.') else main).append(p)
+        path = name.split('.')[:-1]
+        if any(m.startswith('bn') or m == 'downsample_bn' for m in path):
+            frozen.append(p)
+        elif 'img_backbone' in name:
+            backbone.append(p)
+        else:
+            main.append(p)
     sched = cosine_annealing_schedule(base_lr, total_steps, warmup_iters)
-    return AdamW([dict(params=main, lr_mult=1.0),
-                  dict(params=backbone, lr_mult=backbone_lr_mult)], sched,
-                 weight_decay=weight_decay, grad_clip_norm=grad_clip_norm)
+    groups = [dict(params=main, lr_mult=1.0),
+              dict(params=backbone, lr_mult=backbone_lr_mult)]
+    if frozen:
+        # its gradients count in the clipped norm, as in optax
+        groups.append(dict(params=frozen, lr_mult=0.0))
+    return AdamW(groups, sched, weight_decay=weight_decay,
+                 grad_clip_norm=grad_clip_norm)

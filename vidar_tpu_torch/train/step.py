@@ -7,6 +7,10 @@ gated rollout, the ray CE and dense chamfer losses), the backward pass and
 the clipped AdamW update, and returns the step's metrics. ``DetTrainStep``,
 the fine-tune step: the train forward of ``BEVFormer``, its
 Hungarian-matched focal + L1 loss, the backward pass and the update.
+``UniADTrainStep``, UniAD's end-to-end step (``make_uniad_train_step``,
+step.py:160-223): the clip forward when the targets carry the clip fields,
+else the single frame, the weighted multi-task loss, the backward pass and
+the update.
 
 Across processes (``vidar_tpu_torch.parallel``) each rank steps on its
 local slice of the global batch, and the step computes what JAX's step
@@ -59,12 +63,13 @@ class _Step:
                 p.grad = torch.zeros_like(p)
         all_reduce_sum_([p.grad for p in live])
 
-    def _update(self, losses) -> Dict[str, float]:
-        """Backward of the sum of ``losses``, the gradients summed over the
-        ranks, and the clipped update -> every loss and ``loss`` (summed
-        over the ranks: the global batch's) and ``grad_norm`` (of the
-        summed gradients) as Python numbers."""
-        total = sum(losses.values())
+    def _update(self, losses, total=None) -> Dict[str, float]:
+        """Backward of ``total`` (the sum of ``losses`` where not given),
+        the gradients summed over the ranks, and the clipped update ->
+        every loss and ``loss`` (summed over the ranks: the global batch's)
+        and ``grad_norm`` (of the summed gradients) as Python numbers."""
+        if total is None:
+            total = sum(losses.values())
         self.backward(total)
         values = dict(losses, loss=total)
         if world_size() > 1:
@@ -145,3 +150,46 @@ class DetTrainStep(_Step):
         preds = m(batch.frames, train=True, generator=self.generator)
         return self._update(m.loss(preds, batch.gt_bboxes, batch.gt_labels,
                                    batch.num_valid_gt))
+
+
+class UniADTrainStep(_Step):
+    """``step((frames, targets, command)) -> metrics``: every per-task
+    loss, ``loss`` (their ``task_loss_weight``-weighted sum) and
+    ``grad_norm``, as Python numbers. Targets with the clip fields
+    (``track_boxes`` et al.) train the clip through ``UniAD.clip_forward``;
+    without them the single frame. Dropout draws from PyTorch's default
+    generator, and the step draws nothing else (UniAD has no grid mask or
+    Gumbel noise), so it takes no generator. One process only: the UniAD
+    losses do not sum their normalisers over ranks."""
+
+    def __init__(self, model, optimizer, *,
+                 task_loss_weight: Optional[dict] = None, device='cuda'):
+        super().__init__(model, optimizer, device=device)
+        self.task_loss_weight = task_loss_weight
+
+    def __call__(self, batch) -> Dict[str, float]:
+        from ..uniad.clip_matcher import FrameGT
+        from ..uniad.loss import uniad_clip_loss, uniad_loss
+        m = self.model
+        frames, targets, command = (x.to(self.device) for x in batch)
+        m.train()
+        self.optimizer.zero_grad(set_to_none=True)
+        if targets.track_boxes is not None:
+            gt = FrameGT(boxes=targets.track_boxes,
+                         labels=targets.track_labels, ids=targets.track_ids,
+                         num_valid=targets.track_num)
+            track_losses, out, matched = m.clip_forward(
+                frames, gt, targets.l2g_r, targets.l2g_t, targets.timestamp,
+                command, deterministic=False, with_masks=True)
+            total, losses = uniad_clip_loss(
+                track_losses, out, targets, matched,
+                task_loss_weight=self.task_loss_weight)
+        else:
+            bs = command.shape[0]
+            _, prev_bev = m.init_stream(bs, self.device)
+            out = m(frames, None, prev_bev,
+                    torch.zeros(bs, dtype=torch.bool, device=self.device),
+                    command, deterministic=False, with_masks=True)
+            total, losses = uniad_loss(out, targets,
+                                       task_loss_weight=self.task_loss_weight)
+        return self._update(losses, total)
