@@ -1,8 +1,9 @@
 """Chip smoke test of the PyTorch/CUDA port: the ViDAR forecast, the
 pre-training step, the BEVFormer detection fine-tune (eval, streaming eval
-and train step), the train and test CLIs on the released configs, data
-parallelism across processes, and UniAD (its eval, clip train step and
-CLIs), on one GPU.
+and train step, in f32 and bf16), the train and test CLIs on the released
+configs, data parallelism across processes, UniAD (its eval, clip train
+step and CLIs), and the data path from raw nuScenes tables through the
+port's data-preparation tools, on one GPU.
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and the
 CUDA toolkit:
@@ -163,7 +164,35 @@ it drives; a kernel of the path that never launched fails the run:
    K1 and K5 at the motion head's 64,872 folded queries, the panoptic
    encoder's 40,000 and decoder's 300, the track decoder's 900, TSA and
    SCA; K9 at stages 3-4; K3/K4 and K6/K7, K8. ``uniad_*_launches`` and
-   ``cli_uniad_*_launches`` in the kernel line.
+   ``cli_uniad_*_launches`` in the kernel line;
+12. the data path from raw tables, the rest of the fine-tune, the
+   analysis tools and the video step (``_phase12``). a: nuScenes v1.0
+   tables (``_write_nuscenes_tables``: 2 trainval scenes and 1 test scene
+   of 40 keyframes, 6 JPEG cameras at 900x1600 (phase 9's, shared by the
+   rows), 34720 lidar points a keyframe and 9 sweeps at 20 Hz between
+   keyframes, 40 tracked instances, CAN bus at 50 Hz, map expansions along
+   the ego path); b: the port's converter, map converter, k-means anchors
+   (6 modes, 12 steps) and merge-fullset on them, each output checked
+   against what was written (``_check_converted``: counts, frame_idx, the
+   nearest CAN-bus message, the GT boxes in the lidar frame), the
+   converter's host time a sample; c: ``vidar_e2e.py`` through the train
+   CLI for 2 steps on the converted train pkl with its map gt and k-means
+   anchors (2-frame clips, phase 11's cut), ``map.loss`` finite and above
+   0, then its UniAD eval on the val pkl; d: the fullset pre-training
+   config for 2 steps on the merged traintest pkl; e: ``BEVFormerFP16`` at
+   phase 6's full width and batch: the window eval, 3 streamed frames and a
+   train step with every kernel counted and held against its plain
+   version on its kept bf16 inputs (K1b at TSA, SCA and the detection
+   decoder, K2 at each ResNet call, K3/K4, K5, K6/K7, K8), then both
+   fine-tune CLIs with ``model.type=BEVFormer_fp16`` on the converted
+   pkls; f: ``hungarian_assign(impl='auction')`` on the card against
+   scipy on the fine-tune's cost [900, G], G = 40 and 200 (the total
+   within G x eps, both times, the rounds); g: ``count_params`` of
+   ``vidar_1_8_nusc_3future`` and ``vidar_e2e.py`` equal to the models
+   built, ``benchmark`` (3 samples) beside phase 4, ``profile_trace`` (its
+   ``timer`` spans and device kernels in the trace), ``visibility_scan`` on
+   the converted pkl; h: one video-replay train step of ``vidar_base`` in
+   bf16 at full width. ``p12_*_launches`` in the kernel line.
 
 The line before the last is a JSON object of per-kernel results; the last
 is ``{"ok": true, "device": {...}}``.
@@ -173,6 +202,7 @@ from __future__ import annotations
 
 import cProfile
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -1893,6 +1923,923 @@ def _phase11(counted, card, check, tmp, fixture_pkl, dev='cuda:0'):
     return runs
 
 
+# ------------------------------------- phase 12: data preparation and more
+
+NUSC_CAMERAS = ('CAM_FRONT', 'CAM_FRONT_RIGHT', 'CAM_FRONT_LEFT', 'CAM_BACK',
+                'CAM_BACK_LEFT', 'CAM_BACK_RIGHT')
+# each camera's yaw in the ego frame (x forward, y left), degrees
+NUSC_CAMERA_YAW = (0.0, -55.0, 55.0, 180.0, 110.0, -110.0)
+# raw nuScenes categories of the tables' instances, an attribute of each and
+# the detection class the converter must map each onto
+NUSC_CATEGORIES = (
+    ('vehicle.car', 'vehicle.moving', 'car'),
+    ('vehicle.truck', 'vehicle.parked', 'truck'),
+    ('vehicle.construction', 'vehicle.stopped', 'construction_vehicle'),
+    ('vehicle.bus.rigid', 'vehicle.moving', 'bus'),
+    ('vehicle.trailer', 'vehicle.parked', 'trailer'),
+    ('movable_object.barrier', None, 'barrier'),
+    ('vehicle.motorcycle', 'cycle.with_rider', 'motorcycle'),
+    ('vehicle.bicycle', 'cycle.without_rider', 'bicycle'),
+    ('human.pedestrian.adult', 'pedestrian.moving', 'pedestrian'),
+    ('movable_object.trafficcone', None, 'traffic_cone'))
+NUSC_LOCATIONS = ('boston-seaport', 'singapore-onenorth',
+                  'singapore-queenstown', 'singapore-hollandvillage')
+# the lidar's mounting on the ego, as nuScenes' LIDAR_TOP: 0.94 m ahead,
+# 1.84 m up, turned -90 degrees about z
+NUSC_LIDAR2EGO = ([0.943713, 0.0, 1.84023],
+                  [math.cos(-math.pi / 4), 0.0, 0.0, math.sin(-math.pi / 4)])
+
+
+def _yaw_quat(yaw):
+    return [math.cos(yaw / 2), 0.0, 0.0, math.sin(yaw / 2)]
+
+
+def _rot_quat(r):
+    """A rotation matrix's unit quaternion [w, x, y, z] (w >= 0)."""
+    w = math.sqrt(max(0.0, 1.0 + r[0, 0] + r[1, 1] + r[2, 2])) / 2
+    x = math.copysign(math.sqrt(max(0.0, 1 + r[0, 0] - r[1, 1] - r[2, 2]))
+                      / 2, r[2, 1] - r[1, 2])
+    y = math.copysign(math.sqrt(max(0.0, 1 - r[0, 0] + r[1, 1] - r[2, 2]))
+                      / 2, r[0, 2] - r[2, 0])
+    z = math.copysign(math.sqrt(max(0.0, 1 - r[0, 0] - r[1, 1] + r[2, 2]))
+                      / 2, r[1, 0] - r[0, 1])
+    return [w, x, y, z]
+
+
+def _ego_at(scene, s):
+    """The ego's global pose s seconds into a scene: 5 m/s along a gentle
+    curve -> (translation [3], yaw)."""
+    x0, y0 = 300.0 + 1000.0 * scene, 600.0 + 200.0 * scene
+    return (np.array([x0 + 5.0 * s, y0 + 0.05 * s * s, 0.0]),
+            math.atan2(0.1 * s, 5.0))
+
+
+def _map_json(scene, seconds):
+    """A map expansion along a scene's ego path: road segments (every
+    20 m), a road divider and lane dividers on both sides, and a
+    pedestrian crossing every 30 m."""
+    nodes, lines, polys = [], [], []
+    out = dict(road_divider=[], lane_divider=[], ped_crossing=[],
+               road_segment=[])
+
+    def node(x, y):
+        nodes.append(dict(token=f'n{len(nodes)}', x=float(x), y=float(y)))
+        return nodes[-1]['token']
+
+    def poly(pts, kind):
+        tok = f'p{len(polys)}'
+        polys.append(dict(token=tok, exterior_node_tokens=[node(*p)
+                                                           for p in pts]))
+        out[kind].append(dict(token=f'{kind}{len(out[kind])}',
+                              polygon_token=tok))
+
+    def path(s):
+        t, _ = _ego_at(scene, s)
+        return t[0], t[1]
+
+    s_all = np.arange(-12.0, seconds + 12.0, 2.0)
+    for off, kind in ((0.0, 'road_divider'), (3.5, 'lane_divider'),
+                      (-3.5, 'lane_divider')):
+        tok = f'l{len(lines)}'
+        lines.append(dict(token=tok, node_tokens=[
+            node(*np.add(path(s), (0.0, off))) for s in s_all]))
+        out[kind].append(dict(token=f'{kind}{len(out[kind])}',
+                              line_token=tok))
+    for s in np.arange(-12.0, seconds + 12.0, 4.0):
+        (xa, ya), (xb, yb) = path(s), path(s + 4.0)
+        poly([(xa, ya - 8), (xb, yb - 8), (xb, yb + 8), (xa, ya + 8)],
+             'road_segment')
+    for s in np.arange(-6.0, seconds + 6.0, 6.0):
+        x, y = path(s)
+        poly([(x - 2, y - 7), (x + 2, y - 7), (x + 2, y + 7), (x - 2, y + 7)],
+             'ped_crossing')
+    return dict(node=nodes, line=lines, polygon=polys, **out)
+
+
+def _write_nuscenes_tables(root, *, scenes=2, keyframes=40,
+                           img_hw=(900, 1600), num_points=34720,
+                           instances=40, sweeps=9, canbus=None,
+                           version='v1.0-trainval', jpegs=None, first=0,
+                           seed=0):
+    """nuScenes v1.0 tables under ``root/version`` for ``scenes`` scenes of
+    ``keyframes`` 2 Hz keyframes each (40: 20 s, a nuScenes scene), as the
+    devkit lays them out: sample, sample_data (6 cameras and LIDAR_TOP per
+    keyframe, plus ``sweeps`` lidar sweeps at 20 Hz between keyframes),
+    calibrated_sensor, ego_pose, sensor, scene, log and, but in a test
+    version, sample_annotation, instance, category and attribute
+    (``instances`` tracked instances a keyframe, each in every keyframe of
+    its scene), the scenes numbered from ``first``. Each camera's JPEG
+    (``jpegs``, one per camera, else an encode of ``_camera_image``) is
+    written once and shared by its rows; each keyframe gets its own
+    ``num_points`` seeded lidar points and its sweeps share them.
+    ``can_bus/<scene>_pose.json`` at 50 Hz for each scene where ``canbus``
+    (default all) says so, and ``maps/expansion/<location>.json`` along
+    the ego path. -> truth: {scene name: dict(token, samples: [dict(token,
+    timestamp, ego (translation, rotation)), ...], boxes: per keyframe the
+    [instances, 7] global boxes (x y z w l h yaw), names: each instance's
+    detection class, canbus: the written messages, [] where none)}."""
+    rng = np.random.default_rng(seed)
+    canbus = (True,) * scenes if canbus is None else canbus
+    canbus = dict(zip(range(first, first + scenes), canbus))
+    h, w = img_hw
+    tdir = os.path.join(root, version)
+    for d in (tdir, os.path.join(root, 'samples', 'LIDAR_TOP'),
+              os.path.join(root, 'can_bus'),
+              os.path.join(root, 'maps', 'expansion')):
+        os.makedirs(d, exist_ok=True)
+    if jpegs is None:
+        jpegs = [_encode_jpeg(_camera_image(rng, h, w))
+                 for _ in NUSC_CAMERAS]
+    cam_files = []
+    for c, cam in enumerate(NUSC_CAMERAS):
+        os.makedirs(os.path.join(root, 'samples', cam), exist_ok=True)
+        cam_files.append(f'samples/{cam}/{cam}.jpg')
+        with open(os.path.join(root, cam_files[-1]), 'wb') as f:
+            f.write(jpegs[c % len(jpegs)])
+    sensors, calib = [], []
+    intrinsic = [[1266.4, 0.0, w / 2], [0.0, 1266.4, h / 2],
+                 [0.0, 0.0, 1.0]]
+    for c, cam in enumerate(NUSC_CAMERAS + ('LIDAR_TOP',)):
+        sensors.append(dict(token=f'sensor_{cam}', channel=cam,
+                            modality='lidar' if cam == 'LIDAR_TOP'
+                            else 'camera'))
+        if cam == 'LIDAR_TOP':
+            t, q, k = NUSC_LIDAR2EGO[0], NUSC_LIDAR2EGO[1], []
+        else:
+            a = math.radians(NUSC_CAMERA_YAW[c])
+            fwd = np.array([math.cos(a), math.sin(a), 0.0])
+            right = np.array([math.sin(a), -math.cos(a), 0.0])
+            q = _rot_quat(np.stack([right, [0.0, 0.0, -1.0], fwd], 1))
+            t, k = list(fwd * 1.2 + [0.0, 0.0, 1.5]), intrinsic
+        calib.append(dict(token=f'calib_{cam}', sensor_token=f'sensor_{cam}',
+                          translation=list(t), rotation=list(q),
+                          camera_intrinsic=k))
+    categories = [dict(token=f'cat{k}', name=n, description='')
+                  for k, (n, _, _) in enumerate(NUSC_CATEGORIES)]
+    attr_names = sorted({a for _, a, _ in NUSC_CATEGORIES if a})
+    attributes = [dict(token=f'attr_{a}', name=a) for a in attr_names]
+    tables = {k: [] for k in ('sample', 'sample_data', 'ego_pose', 'scene',
+                              'log', 'sample_annotation', 'instance')}
+    truth = {}
+    for sc in range(first, first + scenes):
+        name = f'scene-{sc + 1:04d}'
+        t0 = 1533151603547590 + sc * 3600 * 10 ** 6
+        tables['log'].append(dict(token=f'log{sc}', logfile=name,
+                                  location=NUSC_LOCATIONS[sc % 4]))
+        with open(os.path.join(root, 'maps', 'expansion',
+                               f'{NUSC_LOCATIONS[sc % 4]}.json'), 'w') as f:
+            json.dump(_map_json(sc, keyframes / 2), f)
+        stoks = [f'{name}_s{i:02d}' for i in range(keyframes)]
+        tables['scene'].append(dict(
+            token=f'scene{sc}', name=name, log_token=f'log{sc}',
+            nbr_samples=keyframes, first_sample_token=stoks[0],
+            last_sample_token=stoks[-1], description=''))
+        if canbus[sc]:
+            # 50 Hz, each keyframe half way between two messages: the
+            # converter keeps the first of the two
+            msgs = []
+            for k in range(int(keyframes / 2 * 50) + 50):
+                s = (k - 25) / 50.0
+                p, yaw = _ego_at(sc, s)
+                msgs.append(dict(utime=t0 + k * 20000 - 490000,
+                                 pos=p.tolist(), orientation=_yaw_quat(yaw),
+                                 accel=[0.1 * s, 0.01, 9.81],
+                                 rotation_rate=[0.0, 0.0, 0.02],
+                                 vel=[5.0, 0.1 * s, 0.0]))
+            with open(os.path.join(root, 'can_bus', f'{name}_pose.json'),
+                      'w') as f:
+                json.dump(msgs, f)
+        # the scene's instances: offsets from the ego's start, velocities
+        off = rng.uniform(-40, 40, (instances, 2))
+        vel = rng.uniform(-1, 1, (instances, 2))
+        size = rng.uniform(0.5, 4.0, (instances, 3))
+        yaw_i = rng.uniform(-np.pi, np.pi, instances)
+        cats = [k % len(NUSC_CATEGORIES) for k in range(instances)]
+        itoks = [f'{name}_inst{k}' for k in range(instances)]
+        samples, boxes = [], []
+        prev_lidar = None
+        for i, stok in enumerate(stoks):
+            ts = t0 + i * 500000
+            p, yaw = _ego_at(sc, i / 2)
+            samples.append(dict(token=stok, timestamp=ts,
+                                ego=(p.tolist(), _yaw_quat(yaw))))
+            tables['sample'].append(dict(
+                token=stok, timestamp=ts, scene_token=f'scene{sc}',
+                prev=stoks[i - 1] if i else '',
+                next=stoks[i + 1] if i + 1 < keyframes else ''))
+            # the lidar sweeps before this keyframe (none before the first)
+            lfile = f'samples/LIDAR_TOP/{stok}.bin'
+            r = rng.uniform(2.0, 50.0, num_points)
+            az = rng.uniform(-np.pi, np.pi, num_points)
+            np.stack([r * np.cos(az), r * np.sin(az),
+                      rng.uniform(-1.8, 2.0, num_points),
+                      rng.uniform(0, 255, num_points),
+                      np.zeros(num_points)], 1).astype(np.float32).tofile(
+                os.path.join(root, lfile))
+            chain = [(ts - (sweeps - j) * 50000, False, j)
+                     for j in range(sweeps)] if i else []
+            chain.append((ts, True, sweeps))
+            for t_sd, key, j in chain:
+                sd_tok = f'{stok}_lidar{j}'
+                pj, yj = _ego_at(sc, (t_sd - t0) / 1e6)
+                tables['ego_pose'].append(dict(token=f'ego_{sd_tok}',
+                                               timestamp=t_sd,
+                                               translation=pj.tolist(),
+                                               rotation=_yaw_quat(yj)))
+                row = dict(token=sd_tok, sample_token=stok,
+                           ego_pose_token=f'ego_{sd_tok}',
+                           calibrated_sensor_token='calib_LIDAR_TOP',
+                           timestamp=t_sd, fileformat='pcd',
+                           is_key_frame=key, height=0, width=0,
+                           filename=lfile, next='',
+                           prev=prev_lidar['token'] if prev_lidar else '')
+                if prev_lidar:
+                    prev_lidar['next'] = sd_tok
+                tables['sample_data'].append(row)
+                prev_lidar = row
+            for c, cam in enumerate(NUSC_CAMERAS):
+                sd_tok = f'{stok}_{cam}'
+                t_c = ts + 5000 * c
+                pc_, yc = _ego_at(sc, (t_c - t0) / 1e6)
+                tables['ego_pose'].append(dict(token=f'ego_{sd_tok}',
+                                               timestamp=t_c,
+                                               translation=pc_.tolist(),
+                                               rotation=_yaw_quat(yc)))
+                tables['sample_data'].append(dict(
+                    token=sd_tok, sample_token=stok,
+                    ego_pose_token=f'ego_{sd_tok}',
+                    calibrated_sensor_token=f'calib_{cam}', timestamp=t_c,
+                    fileformat='jpg', is_key_frame=True, height=h, width=w,
+                    filename=cam_files[c], prev='', next=''))
+            # the instances follow the ego, each drifting by its velocity
+            b = np.zeros((instances, 7))
+            b[:, :2] = p[:2] + off + vel * (i / 2)
+            b[:, 2] = rng.uniform(0.5, 1.5, instances)
+            b[:, 3:6] = size
+            b[:, 6] = yaw_i
+            boxes.append(b)
+            for k in range(instances):
+                tables['sample_annotation'].append(dict(
+                    token=f'{itoks[k]}_a{i}', sample_token=stok,
+                    instance_token=itoks[k], visibility_token='4',
+                    attribute_tokens=([f'attr_{NUSC_CATEGORIES[cats[k]][1]}']
+                                      if NUSC_CATEGORIES[cats[k]][1]
+                                      else []),
+                    translation=b[k, :3].tolist(), size=b[k, 3:6].tolist(),
+                    rotation=_yaw_quat(b[k, 6]),
+                    prev=f'{itoks[k]}_a{i - 1}' if i else '',
+                    next=(f'{itoks[k]}_a{i + 1}' if i + 1 < keyframes
+                          else ''),
+                    num_lidar_pts=int(rng.integers(0, 60)),
+                    num_radar_pts=int(rng.integers(0, 3))))
+        for k in range(instances):
+            tables['instance'].append(dict(
+                token=itoks[k], category_token=f'cat{cats[k]}',
+                nbr_annotations=keyframes,
+                first_annotation_token=f'{itoks[k]}_a0',
+                last_annotation_token=f'{itoks[k]}_a{keyframes - 1}'))
+        truth[name] = dict(token=f'scene{sc}', samples=samples, boxes=boxes,
+                           names=[NUSC_CATEGORIES[c][2] for c in cats],
+                           canbus=msgs if canbus[sc] else [])
+    tables.update(sensor=sensors, calibrated_sensor=calib,
+                  category=categories, attribute=attributes)
+    if 'test' in version:
+        for k in ('sample_annotation', 'instance', 'category', 'attribute'):
+            del tables[k]
+    for k, rows in tables.items():
+        with open(os.path.join(tdir, f'{k}.json'), 'w') as f:
+            json.dump(rows, f)
+    return truth
+
+
+
+def _check_converted(infos, truth):
+    """The converter's infos (every split) against the tables
+    ``_write_nuscenes_tables`` wrote (``truth``), computed here on their
+    own: one info per keyframe, each scene's ``frame_idx`` 0, 1, ... in
+    time order; ``can_bus`` the nearest CAN-bus message (the first of two
+    equally near), zeros where the scene has none; ``gt_boxes`` the written
+    global boxes carried into the lidar frame (centre, size, and the yaw in
+    the SECOND convention, -yaw - pi/2) to 1e-9; ``gt_names`` their
+    detection classes. Raises on any difference -> {scene: infos}."""
+    by_scene = {}
+    for info in infos:
+        by_scene.setdefault(info['scene_token'], []).append(info)
+    l2e_r = _quat_rot(NUSC_LIDAR2EGO[1])
+    l2e_t = np.asarray(NUSC_LIDAR2EGO[0])
+    lidar_yaw = math.atan2(l2e_r[1, 0], l2e_r[0, 0])
+    out = {}
+    for name, sc in truth.items():
+        got = sorted(by_scene.pop(sc['token'], []),
+                     key=lambda i: i['timestamp'])
+        if len(got) != len(sc['samples']):
+            raise RuntimeError(f'{name}: {len(got)} infos for '
+                               f'{len(sc["samples"])} keyframes')
+        if [i['frame_idx'] for i in got] != list(range(len(got))):
+            raise RuntimeError(f'{name}: frame_idx '
+                               f'{[i["frame_idx"] for i in got]}')
+        for k, (info, s) in enumerate(zip(got, sc['samples'])):
+            if info['token'] != s['token']:
+                raise RuntimeError(f'{name}: keyframe {k} is '
+                                   f'{info["token"]}')
+            want = np.zeros(18)
+            if sc['canbus']:
+                gap = [abs(m['utime'] - s['timestamp'])
+                       for m in sc['canbus']]
+                m = sc['canbus'][gap.index(min(gap))]
+                want[:16] = (m['pos'] + m['orientation'] + m['accel'] +
+                             m['rotation_rate'] + m['vel'])
+            if not np.array_equal(info['can_bus'], want):
+                raise RuntimeError(f'{name} keyframe {k}: can_bus '
+                                   f'{info["can_bus"]} != {want}')
+            e2g_t, e2g_q = s['ego']
+            e2g_r = _quat_rot(e2g_q)
+            boxes = sc['boxes'][k]
+            centre = ((boxes[:, :3] - e2g_t) @ e2g_r - l2e_t) @ l2e_r
+            ego_yaw = math.atan2(e2g_r[1, 0], e2g_r[0, 0])
+            yaw = -(boxes[:, 6] - ego_yaw - lidar_yaw) - np.pi / 2
+            gb = np.asarray(info['gt_boxes'])
+            dyaw = np.angle(np.exp(1j * (gb[:, 6] - yaw)))
+            err = max(np.abs(gb[:, :3] - centre).max(),
+                      np.abs(gb[:, 3:6] - boxes[:, 3:6]).max(),
+                      np.abs(dyaw).max())
+            if gb.shape != boxes.shape or err > 1e-9:
+                raise RuntimeError(f'{name} keyframe {k}: gt_boxes off the '
+                                   f'written boxes by {err}')
+            if list(info['gt_names']) != sc['names']:
+                raise RuntimeError(f'{name} keyframe {k}: gt_names '
+                                   f'{list(info["gt_names"])}')
+        out[name] = got
+    if by_scene:
+        raise RuntimeError(f'infos of unknown scenes {sorted(by_scene)}')
+    return out
+
+
+def _quat_rot(q):
+    """A unit quaternion's rotation matrix (nuScenes [w, x, y, z])."""
+    w, x, y, z = q
+    return np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]])
+
+FULLSET_CONFIG = (ROOT / 'configs' / 'vidar_pretrain' / 'nusc_fullset' /
+                  'vidar_full_nusc_1future.py')
+# phase 12's tables: two nuScenes scenes of 40 keyframes (trainval) and one
+# (test), the converted pkls' counts
+P12_SCENES, P12_KEYFRAMES = 2, 40
+# the auction's total against scipy's: within G * eps, eps its own
+# max(span of the costs, 1) * 1e-3, plus f32 rounding of the two sums
+AUCTION_EPS_SCALE = 1e-3
+
+
+def _cli_run(counted, card, name, fn, argv, keepers=None):
+    """One CLI run in this process with every kernel's count set to 0 ->
+    (what it returned, {kernel: launches}); prints its wall time, peak
+    device memory and launches."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out, launches = _run_counted(counted, keepers or {}, lambda: fn(argv))
+    print(f'cli {name}: {time.perf_counter() - t0:.2f} s wall, peak device '
+          f'memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, '
+          f'launches {json.dumps(launches)} on {card}', flush=True)
+    return out, launches
+
+
+def _need(name, launches, kernels, absent=()):
+    never = [k.name for k in kernels if launches[k.name] <= 0]
+    ran = [k.name for k in absent if launches[k.name]]
+    if never or ran:
+        raise RuntimeError(f'phase 12 {name}: kernels {never} never '
+                           f'launched, {ran} launched off their path')
+
+
+def _phase12_data(tmp, jpegs):
+    """12a-b: nuScenes tables written (``_write_nuscenes_tables``), then the
+    port's data-preparation CLIs on them as users run them: the converter
+    (trainval and test), the map converter on the train pkl, the k-means
+    anchors (6 modes, 12 steps) and merge-fullset; each output checked
+    against what was written. -> dict of the outputs' paths."""
+    from vidar_tpu_torch.data import nuscenes_converter
+    from vidar_tpu_torch.tools import data_tools, map_converter
+
+    t0 = time.perf_counter()
+    truth = _write_nuscenes_tables(tmp, scenes=P12_SCENES,
+                                   keyframes=P12_KEYFRAMES, jpegs=jpegs)
+    _write_nuscenes_tables(tmp, scenes=1, keyframes=P12_KEYFRAMES,
+                           jpegs=jpegs, version='v1.0-test', first=P12_SCENES,
+                           seed=1)
+    samples = (P12_SCENES + 1) * P12_KEYFRAMES
+    print(f'phase 12a: nuScenes v1.0 tables, {P12_SCENES} trainval scenes '
+          f'and 1 test scene of {P12_KEYFRAMES} keyframes (6 JPEG cameras '
+          f'900x1600 shared by the rows, 34720 lidar points a keyframe, 9 '
+          f'sweeps at 20 Hz between keyframes, 40 instances, CAN bus at 50 '
+          f'Hz, map expansions), written in {time.perf_counter() - t0:.1f} s',
+          flush=True)
+    t0 = time.perf_counter()
+    nuscenes_converter.main([tmp, '--out-dir', tmp])
+    nuscenes_converter.main([tmp, '--out-dir', tmp, '--version',
+                             'v1.0-test'])
+    conv_s = time.perf_counter() - t0
+    pkl = {s: os.path.join(tmp, f'nuscenes_infos_temporal_{s}.pkl')
+           for s in ('train', 'val', 'test', 'traintest')}
+    infos = {}
+    for s in ('train', 'val', 'test'):
+        with open(pkl[s], 'rb') as f:
+            infos[s] = pickle.load(f)['infos']
+    _check_converted(infos['train'] + infos['val'], truth)
+    if (len(infos['test']) != P12_KEYFRAMES or
+            [i['frame_idx'] for i in infos['test']] !=
+            list(range(P12_KEYFRAMES)) or 'gt_boxes' in infos['test'][0]):
+        raise RuntimeError('phase 12b: the test split\'s infos')
+    print(f'phase 12b: converter {conv_s:.3f} s for {samples} samples, '
+          f'{conv_s / samples * 1e3:.2f} ms of host time a sample; infos '
+          f'train {len(infos["train"])}, val {len(infos["val"])}, test '
+          f'{len(infos["test"])}; frame_idx, the nearest CAN-bus pose and '
+          f'the GT boxes in the lidar frame equal the tables\'', flush=True)
+
+    t0 = time.perf_counter()
+    maps = os.path.join(tmp, 'nuscenes_map_anns_train.pkl')
+    n = map_converter.main(['--data-root', tmp, '--infos', pkl['train'],
+                            '--out', maps])
+    with open(maps, 'rb') as f:
+        anns = pickle.load(f)
+    per = [len(a['labels']) for a in anns.values()]
+    classes = sorted({int(c) for a in anns.values() for c in a['labels']})
+    if n != len(infos['train']) or min(per) == 0 or classes != [0, 1, 2]:
+        raise RuntimeError(f'phase 12b: map anns for {n} samples, '
+                           f'{min(per)}-{max(per)} elements, classes '
+                           f'{classes}')
+    anchors = os.path.join(tmp, 'motion_anchor_infos_mode6.pkl')
+    out = data_tools.main(['kmeans-anchors', pkl['train'], anchors])
+    a = np.stack(out['anchors_all'])
+    if a.shape != (4, 6, 12, 2) or not np.isfinite(a).all() or not any(
+            out['meta']['counts']):
+        raise RuntimeError(f'phase 12b: anchors of shape {a.shape}, '
+                           f'counts {out["meta"]["counts"]}')
+    data_tools.main(['merge-fullset', pkl['train'], pkl['test'],
+                     pkl['traintest']])
+    with open(pkl['traintest'], 'rb') as f:
+        merged = pickle.load(f)['infos']
+    stamps = [i['timestamp'] for i in merged]
+    if len(merged) != len(infos['train']) + len(infos['test']) or \
+            stamps != sorted(stamps):
+        raise RuntimeError('phase 12b: the merged fullset pkl')
+    print(f'phase 12b: map anns for {n} samples ({min(per)}-{max(per)} '
+          f'elements, classes {classes}); k-means anchors {a.shape} from '
+          f'{out["meta"]["counts"]} trajectories per class group; fullset '
+          f'pkl {len(merged)} infos; {time.perf_counter() - t0:.2f} s',
+          flush=True)
+    return dict(pkl=pkl, maps=maps, anchors=anchors, root=tmp)
+
+
+def _phase12_uniad(counted, card, paths):
+    """12c: ``vidar_e2e.py`` through the train CLI for 2 steps on the
+    converted train pkl with its map gt and k-means anchors (2-frame clips,
+    phase 11's cut; 1 frame where 2 run out of memory), then its UniAD eval
+    on the val pkl. -> ({run: launches}, the trained model's element count,
+    the config's count by ``count_params``)."""
+    from vidar_tpu_torch.core.builder import build_dataset
+    from vidar_tpu_torch.core.config import apply_overrides, load_config
+    from vidar_tpu_torch.ops import dcn, latent_render, msda
+    from vidar_tpu_torch.tools import analysis
+    from vidar_tpu_torch.tools import test as test_cli
+    from vidar_tpu_torch.tools import train as train_cli
+
+    pkl, root = paths['pkl'], paths['root']
+    opts = [f'data.train.ann_file={pkl["train"]}',
+            f'data.train.data_root={root}',
+            f'data.train.map_ann_file={paths["maps"]}',
+            f'data.test.ann_file={pkl["val"]}', f'data.test.data_root={root}',
+            f'model.anchor_info_path={paths["anchors"]}']
+    # the map gt reaches the targets: a train sample's map elements
+    cfg = apply_overrides(load_config(str(UNIAD_E2E_CONFIG)),
+                          opts + ['data.train.queue_length=1'])
+    _, targets, _ = build_dataset(cfg['data']['train'])[0]
+    n_map = int(targets.num_valid_map.reshape(-1)[0])
+    if n_map <= 0:
+        raise RuntimeError('phase 12c: no map gt in a train sample')
+    runs = {}
+    forward = [msda.KERNEL, dcn.SAMPLE, latent_render.FIRST_HIT,
+               latent_render.AGGREGATE]
+    backward = [msda.BACKWARD, latent_render.FIRST_HIT_BACKWARD,
+                latent_render.AGGREGATE_BACKWARD]
+    work = f'{root}/uniad_e2e'
+    for frames in (2, 1):
+        cut = f'data.train.queue_length={frames - 1}'
+        try:
+            out, launches = _cli_run(
+                counted, card, 'p12_uniad_e2e', train_cli.main,
+                [str(UNIAD_E2E_CONFIG), '--work-dir', work, '--max-steps',
+                 '2', '--cfg-options', *opts, cut, 'log_interval=1'])
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            print(f'phase 12c: the e2e train CLI at {frames}-frame clips '
+                  f'out of device memory ({str(e).splitlines()[0][:160]})',
+                  flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    else:
+        raise RuntimeError('phase 12c: the e2e train CLI fits at no clip')
+    runs['p12_uniad_e2e'] = launches
+    _need('uniad_e2e', launches, forward + backward,
+          (dcn.KERNEL, dcn.SAMPLE16))
+    _train_log('p12_uniad_e2e', out, 2)
+    model = out.pop('model')
+    if model.anchors.abs().sum() == 0 or not torch.isfinite(
+            model.anchors).all():
+        raise RuntimeError('phase 12c: the k-means anchors did not load')
+    mp = [m['map.loss'] for m in out['log']]
+    if not all(np.isfinite(v) and v > 0 for v in mp):
+        raise RuntimeError(f'phase 12c: map losses {mp}')
+    built = analysis.param_counts(model)[0]
+    counted_cfg = analysis.count_params(str(UNIAD_E2E_CONFIG))
+    print(f'phase 12c: {cut} ({frames}-frame clips); map gt: '
+          f'{n_map} elements in train sample 0; map.loss {mp} (finite, > 0); '
+          f'k-means anchors {tuple(model.anchors.shape)} loaded; s/it '
+          f'{[round(1 / m["it/s"], 3) for m in out["log"]]} on {card}',
+          flush=True)
+    del model, out
+    torch.cuda.empty_cache()
+    metrics, launches = _cli_run(
+        counted, card, 'p12_uniad_eval', test_cli.main,
+        [str(UNIAD_E2E_CONFIG), f'{work}/latest', '--max-samples', '4',
+         '--out', f'{root}/uniad_p12.json', '--cfg-options', *opts])
+    runs['p12_uniad_eval'] = launches
+    _need('uniad_eval', launches, forward, (dcn.KERNEL, dcn.SAMPLE16))
+    _finite_metrics('p12_uniad_eval', metrics, UNIAD_KEYS)
+    print('cli p12_uniad_eval: ' + ', '.join(
+        f'{k} {float(metrics[k]):.4f}' for k in UNIAD_KEYS), flush=True)
+    shutil.rmtree(work)
+    return runs, built, counted_cfg
+
+
+def _phase12_fullset(counted, card, paths):
+    """12d: the fullset pre-training config for 2 steps on the merged
+    traintest pkl -> {run: launches}."""
+    from vidar_tpu_torch.ops import dcn, latent_render, msda
+    from vidar_tpu_torch.tools import train as train_cli
+    pkl, root = paths['pkl'], paths['root']
+    out, launches = _cli_run(
+        counted, card, 'p12_fullset', train_cli.main,
+        [str(FULLSET_CONFIG), '--work-dir', f'{root}/fullset', '--max-steps',
+         '2', '--cfg-options', f'data.train.ann_file={pkl["traintest"]}',
+         f'data.train.data_root={root}', f'data.test.ann_file={pkl["val"]}',
+         f'data.test.data_root={root}', 'log_interval=1'])
+    _need('fullset', launches,
+          [msda.KERNEL, dcn.SAMPLE, latent_render.FIRST_HIT,
+           latent_render.AGGREGATE, msda.BACKWARD,
+           latent_render.FIRST_HIT_BACKWARD,
+           latent_render.AGGREGATE_BACKWARD], (dcn.KERNEL, dcn.SAMPLE16))
+    _train_log('p12_fullset', out, 2)
+    print(f'phase 12d: {FULLSET_CONFIG.relative_to(ROOT)}, 2 steps on '
+          f'the merged traintest pkl on {card}', flush=True)
+    shutil.rmtree(f'{root}/fullset')
+    return {'p12_fullset': launches}
+
+
+def _p12_keepers(run, train):
+    """The bf16 fine-tune's keepers: each kernel's first input of each
+    case, named ``run:case`` (K1 and K5 by attention, K2 by ResNet stage
+    and image count, K3/K4 and K6/K7, K8 ``run:encoder``)."""
+    from vidar_tpu_torch.ops import dcn, latent_render, msda
+
+    def msda_case(a):
+        return f'{run}:{_msda_case(a) or "other"}'
+    keepers = {msda.KERNEL.name: _Keeper(msda_case),
+               dcn.KERNEL.name: _Keeper(
+                   lambda a: f'{run}:{_dcn_image_case(a)}'),
+               latent_render.FIRST_HIT.name: _Keeper(
+                   lambda a: f'{run}:encoder'),
+               latent_render.AGGREGATE.name: _Keeper(
+                   lambda a: f'{run}:encoder')}
+    if train:
+        keepers.update({
+            msda.BACKWARD.name: _Keeper(msda_case),
+            latent_render.FIRST_HIT_BACKWARD.name: _Keeper(
+                lambda a: f'{run}:encoder'),
+            latent_render.AGGREGATE_BACKWARD.name: _Keeper(
+                lambda a: f'{run}:encoder')})
+    return keepers
+
+
+def _phase12_bf16(counted, card, check, paths, dev):
+    """12e: ``BEVFormerFP16`` (bf16 compute, f32 parameters) at the
+    fine-tune's full width and depth on phase 6's synthetic batch (5 x 6 x
+    928x1600, 40 GT boxes of 128), random 0.02-scale weights: the
+    full-window eval and 3 streamed frames, then a train step, every
+    kernel counted and held against its plain version on the bf16 inputs
+    it kept (``check``); then the fine-tune train CLI with
+    ``model.type=BEVFormer_fp16`` for 2 steps on the converted train pkl
+    and its test CLI on the val pkl. -> ({run: launches}, the model's
+    last-layer class logits and boxes of the window eval, for 12f)."""
+    from vidar_tpu_torch.configs import vidar_finetune_1_8_nusc_3future
+    from vidar_tpu_torch.data import make_synthetic_det_batch
+    from vidar_tpu_torch.evals.det_runner import DetectionRunner
+    from vidar_tpu_torch.models import BEVFormerFP16
+    from vidar_tpu_torch.ops import dcn, latent_render, msda
+    from vidar_tpu_torch.tools import test as test_cli
+    from vidar_tpu_torch.tools import train as train_cli
+    from vidar_tpu_torch.train import DetTrainStep, make_optimizer
+
+    torch.backends.cudnn.allow_tf32 = False
+    forward = [msda.KERNEL, dcn.KERNEL, latent_render.FIRST_HIT,
+               latent_render.AGGREGATE]
+    backward = [msda.BACKWARD, latent_render.FIRST_HIT_BACKWARD,
+                latent_render.AGGREGATE_BACKWARD]
+    runs = {}
+    det = BEVFormerFP16(**vidar_finetune_1_8_nusc_3future(),
+                        device=dev).eval()
+    det.randomize_(torch.Generator(device=dev).manual_seed(12), 0.02)
+    q, cams, ih, iw, n_gt, max_gt = 4, 6, 928, 1600, 40, 128
+    batch = make_synthetic_det_batch(
+        np.random.default_rng(0), bs=1, queue_length=q, num_cams=cams,
+        img_h=ih, img_w=iw, max_points=64, max_gt=max_gt, num_gt=n_gt,
+        device=dev)
+    full = DetectionRunner(det, device=dev)
+    stream = DetectionRunner(det, streaming=True, device=dev)
+    frames = [(_window(batch, q - 1 + k), _stream_meta(k)) for k in range(3)]
+
+    def det_eval():
+        times = []
+        out = {}
+        for name, fn in [('full', lambda: full(batch))] + [
+                (f'stream{k}', lambda b=b, m=m: stream(b, m))
+                for k, (b, m) in enumerate(frames)]:
+            t0 = time.perf_counter()
+            out[name] = fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return out, times
+
+    keepers = _p12_keepers('bf16_eval', train=False)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (samples, times), launches = _run_counted(counted, keepers, det_eval)
+    peak = torch.cuda.max_memory_allocated()
+    runs['p12_bf16_eval'] = launches
+    _need('bf16 eval', launches, forward, (dcn.SAMPLE, dcn.SAMPLE16))
+    for name, (pred, gt) in samples.items():
+        _check_detections(name, pred, gt, 10)
+    print(f'phase 12e: BEVFormer_fp16 eval (bf16, 5 x {cams} x {ih}x{iw}, '
+          f'900 queries, 200x200 BEV): full window {times[0]:.4f} s (with '
+          f'warm-up), streamed frames '
+          f'{" ".join(f"{t:.4f}" for t in times[1:])}'
+          f' s; peak memory {peak / 2**30:.2f} GiB; launches '
+          f'{json.dumps(launches)} on {card}', flush=True)
+    check('bf16_eval', keepers, launches)
+    torch.backends.cudnn.allow_tf32 = False
+    with torch.inference_mode():
+        preds = det(batch.frames, train=False)
+    logits = (preds['all_cls_scores'][-1][0].float(),
+              preds['all_bbox_preds'][-1][0].float())
+    del preds, samples, full, stream
+
+    step = DetTrainStep(det, make_optimizer(det, device=dev),
+                        generator=torch.Generator(device=dev).manual_seed(13),
+                        device=dev)
+    keepers = _p12_keepers('bf16_train', train=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics, launches = _run_counted(counted, keepers, lambda: step(batch))
+    warm = time.perf_counter() - t0
+    runs['p12_bf16_train'] = launches
+    _need('bf16 train step', launches, forward + backward,
+          (dcn.SAMPLE, dcn.SAMPLE16))
+    if not all(np.isfinite(v) for v in metrics.values()) or not \
+            metrics['grad_norm'] > 0:
+        raise RuntimeError(f'phase 12e: step metrics {metrics}')
+    check('bf16_train', keepers, launches)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics = step(batch)
+    torch.cuda.synchronize()
+    st = time.perf_counter() - t0
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise RuntimeError(f'phase 12e: step metrics {metrics}')
+    print(f'phase 12e: BEVFormer_fp16 train step 1 (warm-up) {warm:.3f} s, '
+          f'step 2 {st:.4f} s/it, peak memory '
+          f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; loss '
+          f'{metrics["loss"]:.5f}, grad_norm {metrics["grad_norm"]:.5g} on '
+          f'{card}', flush=True)
+    del det, step, batch
+    torch.cuda.empty_cache()
+
+    # the fine-tune CLIs as users select the variant, on the converted data
+    torch.backends.cudnn.allow_tf32 = True
+    pkl, root = paths['pkl'], paths['root']
+    opts = [f'data.train.ann_file={pkl["train"]}',
+            f'data.train.data_root={root}',
+            f'data.test.ann_file={pkl["val"]}', f'data.test.data_root={root}',
+            'model.type=BEVFormer_fp16', 'log_interval=1']
+    work = f'{root}/ft16'
+    out, launches = _cli_run(
+        counted, card, 'p12_bf16_finetune', train_cli.main,
+        [str(FINETUNE_CONFIG), '--work-dir', work, '--max-steps', '2',
+         '--cfg-options', *opts])
+    runs['p12_bf16_finetune'] = launches
+    if type(out['model']).__name__ != 'BEVFormerFP16':
+        raise RuntimeError(f'phase 12e: the CLI built '
+                           f'{type(out["model"]).__name__}')
+    _need('bf16 fine-tune CLI', launches, forward + backward,
+          (dcn.SAMPLE, dcn.SAMPLE16))
+    _train_log('p12_bf16_finetune', out, 2)
+    del out
+    metrics, launches = _cli_run(
+        counted, card, 'p12_bf16_det_eval', test_cli.main,
+        [str(FINETUNE_CONFIG), f'{work}/latest', '--max-samples', '3',
+         '--cfg-options', *opts])
+    runs['p12_bf16_det_eval'] = launches
+    _need('bf16 test CLI', launches, forward, (dcn.SAMPLE, dcn.SAMPLE16))
+    _finite_metrics('p12_bf16_det_eval', metrics, ('NDS', 'mAP'))
+    print(f'cli p12_bf16_det_eval: NDS {float(metrics["NDS"]):.4f}, mAP '
+          f'{float(metrics["mAP"]):.4f}', flush=True)
+    shutil.rmtree(work)
+    return runs, logits
+
+
+def _phase12_matchers(card, logits, dev):
+    """12f: ``hungarian_assign(impl='auction')`` on the card against scipy
+    on the fine-tune's cost [900, G] (the bf16 eval's last-layer logits and
+    boxes against G random GT boxes, the head's focal + L1 cost), G = 40
+    and 200: every GT owned once, the total within G * eps of scipy's."""
+    from vidar_tpu_torch.core import bbox as bbox_core
+    cls, boxes = logits
+    rng = np.random.default_rng(14)
+    for g in (40, 200):
+        gt = np.zeros((g, 9), np.float32)
+        gt[:, :2] = rng.uniform(-45, 45, (g, 2))
+        gt[:, 2] = rng.uniform(-2, 0, g)
+        gt[:, 3:6] = rng.uniform(0.5, 4.0, (g, 3))
+        gt[:, 6] = rng.uniform(-np.pi, np.pi, g)
+        gt_n = bbox_core.normalize_bbox(torch.from_numpy(gt).to(dev))
+        labels = torch.from_numpy(rng.integers(0, 10, g)).to(dev)
+        cost = (bbox_core.focal_loss_cost(cls, labels) +
+                bbox_core.bbox3d_l1_cost(boxes, gt_n))
+        times = {}
+        for impl in ('scipy', 'auction', 'scipy', 'auction'):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            owner = bbox_core.hungarian_assign(cost, g, impl=impl)
+            torch.cuda.synchronize()
+            times[impl] = time.perf_counter() - t0   # the second of each
+            if impl == 'scipy':
+                exact = owner
+        _, iters = bbox_core.auction_assign(cost, g, return_iters=True)
+        c, owner, exact = cost.double().cpu(), owner.cpu(), exact.cpu()
+        total = float(c[owner >= 0, owner[owner >= 0]].sum())
+        opt = float(c[exact >= 0, exact[exact >= 0]].sum())
+        eps = max(float(c.max() - c.min()), 1.0) * AUCTION_EPS_SCALE
+        owned = sorted(owner[owner >= 0].tolist())
+        print(f'phase 12f: matcher on the fine-tune cost [900, {g}]: '
+              f'auction {times["auction"] * 1e3:.2f} ms ({iters} rounds, on '
+              f'the card), scipy {times["scipy"] * 1e3:.2f} ms (copy to the '
+              f'host + linear_sum_assignment); totals {total:.4f} vs '
+              f'{opt:.4f}, G*eps {g * eps:.4f} on {card}', flush=True)
+        if owned != list(range(g)) or total > opt + g * eps + 1e-6 * abs(
+                opt):
+            raise RuntimeError(f'phase 12f: the auction at G = {g} is off '
+                               f'scipy\'s optimum')
+
+
+def _phase12_analysis(counted, card, paths, forecast_s, dev):
+    """12g: ``tools/analysis.py`` on the card: ``count_params`` of
+    ``vidar_1_8_nusc_3future`` against the model built from it,
+    ``benchmark`` (3 samples, bf16, 928x1600) beside phase 4's forecast,
+    ``profile_trace`` (a Chrome trace holding the forecast's ``timer``
+    spans and device kernels), ``visibility_scan`` on the converted train
+    pkl. -> {run: launches}."""
+    from vidar_tpu_torch.core.builder import build_model
+    from vidar_tpu_torch.core.config import load_config
+    from vidar_tpu_torch.ops import dcn, latent_render, msda
+    from vidar_tpu_torch.tools import analysis
+
+    model = build_model(load_config(str(PRETRAIN_CONFIG))['model'],
+                        device=dev)
+    built = analysis.param_counts(model)[0]
+    del model
+    total = analysis.count_params(str(PRETRAIN_CONFIG))
+    if total != built:
+        raise RuntimeError(f'phase 12g: count_params {total} != {built}')
+    fps, launches = _run_counted(counted, {}, lambda: analysis.benchmark(
+        str(PRETRAIN_CONFIG), samples=3, device=dev))
+    _need('benchmark', launches, [msda.KERNEL, dcn.KERNEL,
+                                  latent_render.FIRST_HIT,
+                                  latent_render.AGGREGATE],
+          (dcn.SAMPLE, dcn.SAMPLE16, msda.BACKWARD))
+    print(f'phase 12g: count_params {total} = the built model\'s; '
+          f'benchmark {fps:.4f} samples/s = {1 / fps:.4f} s/sample (phase 4: '
+          f'{forecast_s:.4f} s/sample) on {card}', flush=True)
+    trace = analysis.profile_trace(str(PRETRAIN_CONFIG),
+                                   f'{paths["root"]}/trace', device=dev)
+    with open(trace) as f:
+        events = json.load(f)['traceEvents']
+    names = {e.get('name') for e in events}
+    spans = sorted(n for n in names if str(n).startswith('forecast/'))
+    kernels = sum(1 for e in events if e.get('cat') == 'kernel')
+    if spans != ['forecast/backbone', 'forecast/decode', 'forecast/encode',
+                 'forecast/rollout'] or not kernels:
+        raise RuntimeError(f'phase 12g: trace spans {spans}, {kernels} '
+                           f'device kernels')
+    print(f'phase 12g: profile trace {os.path.getsize(trace)} bytes, '
+          f'{len(events)} events, {kernels} device kernels, spans {spans}',
+          flush=True)
+    os.remove(trace)
+    t0 = time.perf_counter()
+    rep = analysis.visibility_scan(
+        str(PRETRAIN_CONFIG), max_samples=1, cfg_options=[
+            f'data.train.ann_file={paths["pkl"]["train"]}',
+            f'data.train.data_root={paths["root"]}'])
+    if not 0 < rep['visible_frac_peak'] <= 1:
+        raise RuntimeError(f'phase 12g: visibility {rep}')
+    print(f'phase 12g: visibility_scan on the converted train pkl in '
+          f'{time.perf_counter() - t0:.1f} s', flush=True)
+    return {'p12_benchmark': launches}
+
+
+def _phase12_video(counted, card, dev):
+    """12h: one video-replay train step (``make_video_train_step``) of
+    ``vidar_base`` in bf16 with f32 parameters at full width (bs 1, 4+1
+    frames x 6 x 928x1600, 32768 GT points), random 0.02-scale weights: a
+    warm-up step and a timed one. -> {run: launches}."""
+    from vidar_tpu_torch.configs import vidar_base
+    from vidar_tpu_torch.data import make_synthetic_batch
+    from vidar_tpu_torch.models import ViDAR
+    from vidar_tpu_torch.ops import dcn, latent_render, msda
+    from vidar_tpu_torch.train import make_optimizer
+    from vidar_tpu_torch.train.video_runner import make_video_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    model = ViDAR(**vidar_base(), dtype=torch.bfloat16, device=dev)
+    model.randomize_(torch.Generator(device=dev).manual_seed(15), 0.02)
+    batch = make_synthetic_batch(np.random.default_rng(3), bs=1,
+                                 queue_length=4, future_length=3, num_cams=6,
+                                 img_h=928, img_w=1600, max_points=32768,
+                                 device=dev)
+    step = make_video_train_step(
+        model, make_optimizer(model, device=dev),
+        generator=torch.Generator(device=dev).manual_seed(16), device=dev)
+    t0 = time.perf_counter()
+    metrics, launches = _run_counted(counted, {}, lambda: step(batch))
+    warm = time.perf_counter() - t0
+    _need('video step', launches,
+          [msda.KERNEL, dcn.KERNEL, latent_render.FIRST_HIT,
+           latent_render.AGGREGATE, msda.BACKWARD,
+           latent_render.FIRST_HIT_BACKWARD,
+           latent_render.AGGREGATE_BACKWARD], (dcn.SAMPLE, dcn.SAMPLE16))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics = step(batch)
+    torch.cuda.synchronize()
+    st = time.perf_counter() - t0
+    if not all(np.isfinite(v) for v in metrics.values()) or not \
+            metrics['grad_norm'] > 0:
+        raise RuntimeError(f'phase 12h: video step metrics {metrics}')
+    print(f'phase 12h: video train step (vidar_base bf16, 4 history frames '
+          f'replayed without gradient, the current one with): warm-up '
+          f'{warm:.3f} s, then {st:.4f} s/it, peak memory '
+          f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; loss '
+          f'{metrics["loss"]:.5f}, grad_norm {metrics["grad_norm"]:.5g}; '
+          f'launches {json.dumps(launches)} on {card}', flush=True)
+    del model, step, batch
+    torch.cuda.empty_cache()
+    return {'p12_video_step': launches}
+
+
+def _phase12(counted, card, check, fixture_dir, forecast_s, dev='cuda:0'):
+    """Phase 12: the data path as users run it, end to end, then the rest
+    of the fine-tune, the analysis tools and the video step (12a-h)."""
+    dev = torch.device(dev)
+    t0 = time.perf_counter()
+    tmp = os.path.join(fixture_dir, 'nusc_tables')
+    jpegs = []
+    for c in range(6):
+        with open(os.path.join(fixture_dir, 'samples', f'img_0_{c}.jpg'),
+                  'rb') as f:
+            jpegs.append(f.read())
+    paths = _phase12_data(tmp, jpegs)
+    runs, built, counted_cfg = _phase12_uniad(counted, card, paths)
+    if built != counted_cfg:
+        raise RuntimeError(f'phase 12g: count_params of vidar_e2e.py '
+                           f'{counted_cfg} != the trained model\'s {built}')
+    print(f'phase 12g: count_params(vidar_e2e.py) {counted_cfg} = the '
+          f'trained model\'s', flush=True)
+    runs.update(_phase12_fullset(counted, card, paths))
+    bf16_runs, logits = _phase12_bf16(counted, card, check, paths, dev)
+    runs.update(bf16_runs)
+    _phase12_matchers(card, logits, dev)
+    del logits
+    runs.update(_phase12_analysis(counted, card, paths, forecast_s, dev))
+    runs.update(_phase12_video(counted, card, dev))
+    shutil.rmtree(tmp)
+    print(f'phase 12: {time.perf_counter() - t0:.1f} s', flush=True)
+    return runs
+
 # ------------------------------------- phase 10: data parallelism
 
 # phase 10a's comparison of two ranks with one bs-2 process, as phase 5's
@@ -3116,6 +4063,45 @@ def main() -> int:
             raise RuntimeError(f'{run}: a kernel disagrees with its plain '
                                f'version on the CLI path')
 
+    def check_bf16(run, keepers, n):
+        """Every kernel of a bf16 fine-tune run against its plain version on
+        the bf16 inputs the run kept (K1 at each attention, the detection
+        decoder's included, K2 at each ResNet call, K3/K4 and, after a
+        train run, K5 at each attention and K6/K7 and K8), at the
+        tolerances of phases 3-7, cudnn's TF32 off."""
+        torch.backends.cudnn.allow_tf32 = False
+        oks = []
+        for case, a in sorted(keepers[msda.KERNEL.name].inputs.items()):
+            if a['value'].dtype != torch.bfloat16:
+                raise RuntimeError(f'{case}: K1 took {a["value"].dtype} '
+                                   f'values on the bf16 path')
+            oks.append(compare(
+                msda.KERNEL, f'{case},bfloat16', a,
+                lambda a=a: msda.msda_forward_cuda(a['value'],
+                                                   a['spatial_shapes'],
+                                                   a['loc'], a['weights']),
+                lambda a=a: msda.msdeform_attn_plain(a['value'],
+                                                     a['spatial_shapes'],
+                                                     a['loc'], a['weights']),
+                n=n))
+        for case, a in sorted(keepers[dcn.KERNEL.name].inputs.items()):
+            args = (a['x'], a['sx'], a['sy'], a['mask'], a['weight'])
+            oks.append(compare(dcn.KERNEL, case, a,
+                               lambda args=args: dcn.dcn_conv_cuda(*args),
+                               lambda args=args: dcn.dcn_conv_plain(*args),
+                               n=n))
+        oks += compare_render(keepers, f'{run}:encoder', n)
+        if msda.BACKWARD.name in keepers:
+            oks += compare_backwards(keepers, f'{run}:encoder', n)
+        print(f'{run}: {len(oks)} kernel cases against their plain '
+              f'versions on the bf16 inputs, {sum(oks)} within tolerance',
+              flush=True)
+        keepers.clear()
+        torch.cuda.empty_cache()
+        if not all(oks):
+            raise RuntimeError(f'{run}: a kernel disagrees with its plain '
+                               f'version on the bf16 fine-tune')
+
     with tempfile.TemporaryDirectory() as fixture_dir:
         cli, data = _phase9(counted, card, check_cli, fixture_dir)
 
@@ -3132,6 +4118,10 @@ def main() -> int:
                          data[0].split('=', 1)[1])
         print(f'phase 11: {time.perf_counter() - t0:.1f} s', flush=True)
 
+        # -- phase 12: the data path from raw tables, the rest of the
+        # fine-tune, the analysis tools and the video step
+        later = _phase12(counted, card, check_bf16, fixture_dir, forecast_s)
+
     for r in results:
         base = r['name'].split('[')[0]
         r.setdefault('train_launches', train_launches[base])
@@ -3143,7 +4133,7 @@ def main() -> int:
         for rank, parts in dp.items():
             r[f'dp_rank{rank}_launches'] = parts['pretrain'][base]
             r[f'dp_finetune_rank{rank}_launches'] = parts['finetune'][base]
-        for run, launches in uniad.items():
+        for run, launches in {**uniad, **later}.items():
             r[f'{run}_launches'] = launches[base]
     print(json.dumps({'kernels': results}))
     print(json.dumps({'ok': True, 'device': {

@@ -1085,3 +1085,18 @@ def test_native_resize_equals_numpy_on_flagship_image(dev, factor):
     box = (10, -4, size[0] - 10, size[1] + 4)
     np.testing.assert_array_equal(native.crop_flip(want, box, True),
                                   pipeline.crop_flip(want, box, True))
+
+
+@pytest.mark.parametrize('g', [40, 200])
+def test_auction_on_the_card_equals_the_cpu(dev, g):
+    """``auction_assign`` (plain PyTorch, no kernel of its own) on the card
+    at the fine-tune's cost shape [900, G]: the same owners as on the CPU,
+    every GT owned once."""
+    from vidar_tpu_torch.core import bbox
+    rng = np.random.default_rng(g)
+    cost = torch.from_numpy(rng.uniform(0, 3, (900, g)).astype(np.float32))
+    cpu = bbox.auction_assign(cost, g)
+    card = bbox.auction_assign(cost.to(dev), g)
+    assert card.device.type == 'cuda'
+    assert torch.equal(card.cpu(), cpu)
+    assert sorted(cpu[cpu >= 0].tolist()) == list(range(g))

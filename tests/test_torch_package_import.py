@@ -1,6 +1,7 @@
-"""``vidar_tpu_torch`` and every submodule import with JAX, flax and Pillow
-blocked, and neither they nor the JAX package are imported by the port or
-by ``chip_smoke.py`` (the card's machine may have no Pillow)."""
+"""``vidar_tpu_torch`` and every submodule import with JAX, flax, Pillow and
+matplotlib blocked, and neither they nor the JAX package are imported by
+the port or by ``chip_smoke.py`` (the card's machine has no Pillow and no
+matplotlib)."""
 
 import pathlib
 import re
@@ -30,15 +31,25 @@ def test_imports_without_jax():
             'vidar_tpu_torch.data.rasterize',
             'vidar_tpu_torch.evals.tracking',
             'vidar_tpu_torch.models.position_embedding'} <= set(mods)
+    # the data-preparation and analysis tools, the rest of the fine-tune
+    assert {'vidar_tpu_torch.core.timing',
+            'vidar_tpu_torch.data.nuscenes_converter',
+            'vidar_tpu_torch.tools.map_converter',
+            'vidar_tpu_torch.tools.data_tools',
+            'vidar_tpu_torch.tools.extra_converters',
+            'vidar_tpu_torch.tools.analysis',
+            'vidar_tpu_torch.train.losses',
+            'vidar_tpu_torch.train.video_runner'} <= set(mods)
     code = ("import sys\n"
-            "for name in ('jax', 'jaxlib', 'flax', 'PIL'):\n"
+            "for name in ('jax', 'jaxlib', 'flax', 'PIL', 'matplotlib'):\n"
             "    sys.modules[name] = None\n"
             "import importlib\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             "loaded = [k for k, v in sys.modules.items() if v]\n"
             "assert not [k for k in loaded if k.split('.')[0] in\n"
-            "            ('jax', 'flax', 'vidar_tpu', 'PIL')], loaded\n"
+            "            ('jax', 'flax', 'vidar_tpu', 'PIL',\n"
+            "             'matplotlib')], loaded\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -57,8 +68,8 @@ def test_presets_equal_the_jax_packages():
 
 
 def test_sources_name_no_jax():
-    pattern = re.compile(r'^\s*(import|from)\s+(jax|flax|vidar_tpu|PIL)\b',
-                         re.M)
+    pattern = re.compile(
+        r'^\s*(import|from)\s+(jax|flax|vidar_tpu|PIL|matplotlib)\b', re.M)
     sources = sorted(PKG.rglob('*.py')) + [ROOT / 'chip_smoke.py']
     offenders = [str(p) for p in sources if pattern.search(p.read_text())]
     assert not offenders, offenders

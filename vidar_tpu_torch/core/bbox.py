@@ -4,7 +4,9 @@ and the NMS-free top-k decode.
 
 ``hungarian_assign`` solves the assignment with scipy on the host, as the
 JAX package's ``pure_callback`` does (``_lap_host``, bbox.py:78-88): one
-device-to-host copy of the cost and one ``linear_sum_assignment`` per call.
+device-to-host copy of the cost and one ``linear_sum_assignment`` per call;
+with ``impl='auction'`` it runs ``auction_assign`` (bbox.py:91-145), the
+jittable epsilon auction, as plain PyTorch on the cost's device.
 """
 
 from __future__ import annotations
@@ -69,11 +71,72 @@ def bbox3d_l1_cost(bbox_pred: torch.Tensor, gt_normalized: torch.Tensor,
     return diff.sum(-1) * weight
 
 
-def hungarian_assign(cost: torch.Tensor, num_valid_gt) -> torch.Tensor:
+def auction_assign(cost: torch.Tensor, num_valid_gt, eps_scale: float = 1e-3,
+                   max_iters: int = 512, return_iters: bool = False):
+    """The auction algorithm for the tall assignment (bbox.py:91-145), on
+    cost's device: the valid GTs bid for queries over value = -cost, one
+    epsilon pass, eps = max(value span, 1) * eps_scale. Each round every
+    unassigned valid GT bids (best - second best + eps) for its best query
+    (the first on a tie); the highest bid per query wins, the lowest GT
+    index among equal bids; a won query's owner is replaced and its price
+    rises by max(winning bid, eps); rounds stop when every valid GT owns a
+    query or after ``max_iters``. Within G * eps of the optimum.
+    cost [Q, G] -> [Q] int64 GT index or -1 (and the rounds run, where
+    ``return_iters``)."""
+    qn, g = cost.shape
+    dev = cost.device
+    value = -cost.detach().float().T                            # [G, Q]
+    eps = (value.max() - value.min()).clamp(min=1.0) * eps_scale
+    gt_valid = torch.arange(g, device=dev) < int(num_valid_gt)
+    gt_idx = torch.arange(g, device=dev)
+    prices = torch.zeros(qn, device=dev)
+    owner = torch.full((qn,), -1, dtype=torch.int64, device=dev)
+    neg_inf = torch.tensor(-float('inf'), device=dev)
+
+    def unassigned():
+        assigned = torch.zeros(g + 1, dtype=torch.bool, device=dev)
+        assigned[torch.where(owner >= 0, owner, g)] = True
+        return gt_valid & ~assigned[:g]
+
+    it = 0
+    bidders = unassigned()
+    while it < max_iters and bool(bidders.any()):
+        net = value - prices[None, :]
+        best_q = net.argmax(1)                     # the first on a tie
+        best_v = net.gather(1, best_q[:, None])[:, 0]
+        second_v = net.scatter(1, best_q[:, None], -float('inf')).amax(1)
+        bid = torch.where(bidders, best_v - second_v + eps, neg_inf)
+        # the highest bid per query, then the lowest GT index that bid it
+        winners_bid = torch.full((qn,), -float('inf'), device=dev
+                                 ).scatter_reduce(0, best_q, bid, 'amax')
+        is_winner = (bidders & (bid >= winners_bid[best_q]) &
+                     torch.isfinite(bid))
+        winner_gt = torch.full((qn,), g, dtype=torch.int64, device=dev
+                               ).scatter_reduce(
+            0, best_q, torch.where(is_winner, gt_idx, g), 'amin')
+        has_winner = winner_gt < g
+        owner = torch.where(has_winner, winner_gt, owner)
+        prices = torch.where(has_winner,
+                             prices + torch.maximum(winners_bid, eps),
+                             prices)
+        it += 1
+        bidders = unassigned()
+    return (owner, it) if return_iters else owner
+
+
+def hungarian_assign(cost: torch.Tensor, num_valid_gt,
+                     impl: str = 'auto') -> torch.Tensor:
     """Optimal assignment of the first ``num_valid_gt`` columns of cost
-    [Q, G] (scipy on the host; the cost is detached: no gradient flows
-    through the assignment). Returns [Q] int64 on cost's device: the gt
-    index of each query, -1 where unassigned."""
+    [Q, G]; the cost is detached: no gradient flows through the
+    assignment. Returns [Q] int64 on cost's device: the gt index of each
+    query, -1 where unassigned. ``impl``: 'scipy' (exact, on the host),
+    'auction' (``auction_assign``, on the device) or 'auto', which is scipy
+    here: JAX's 'auto' picks the auction only where its device relay has
+    no host callbacks (bbox.py:166-171), and the card has none such."""
+    if impl == 'auction':
+        return auction_assign(cost, num_valid_gt)
+    if impl not in ('auto', 'scipy'):
+        raise ValueError(f'hungarian_assign impl {impl!r}')
     from scipy.optimize import linear_sum_assignment
     c = cost.detach().float().cpu().numpy()
     out = np.full((c.shape[0],), -1, np.int64)

@@ -81,8 +81,11 @@ class DetectionRunner:
         """-> (prediction: the valid boxes, scores, labels and inferred
         attributes; ground truth: the sample's valid GT boxes and labels),
         as ``evaluate_detection`` takes them."""
-        det = {k: v[0].cpu().numpy() for k, v in
-               self._decode(batch, meta).items()}
+        # a bf16 model decodes bf16 boxes and scores, which numpy has no
+        # type for: f32 holds each of them exactly
+        det = {k: (v[0].float() if v.is_floating_point() else v[0]
+                   ).cpu().numpy()
+               for k, v in self._decode(batch, meta).items()}
         valid = det['valid']
         boxes, labels = det['bboxes'][valid], det['labels'][valid]
         prediction = dict(boxes=boxes, scores=det['scores'][valid],

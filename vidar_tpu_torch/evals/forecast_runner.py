@@ -1,7 +1,10 @@
 """Phase-wise forecast runner (port of vidar_tpu/evals/forecast_runner.py):
 the serving eval path. The host loop drives one backbone pass over every
 (frame, camera) image, one encode per history frame (the BEV carry stays
-f32), one rollout step per future frame, then the head and depth decode.
+f32), one rollout step per future frame, then the head and depth decode;
+each phase is a ``core.timing`` span (``forecast/backbone``,
+``forecast/encode``, ``forecast/rollout``, ``forecast/decode``), so it
+shows in a torch profiler trace.
 """
 
 from __future__ import annotations
@@ -10,6 +13,7 @@ from typing import Dict
 
 import torch
 
+from ..core.timing import timer
 from ..models.vidar import eval_mode
 
 
@@ -29,12 +33,17 @@ class ForecastRunner:
         m = self.model
         with torch.inference_mode(), eval_mode(m):
             batch = batch.to(self.device)
-            feats = m.extract_feats(batch.images)
-            bev = m.encode_history(feats, batch, self.img_hw,
-                                   batch.images.shape[1])
-            preds = m.rollout(bev, batch, self.num_future)
+            with timer('forecast/backbone'):
+                feats = m.extract_feats(batch.images)
+            with timer('forecast/encode'):
+                bev = m.encode_history(feats, batch, self.img_hw,
+                                       batch.images.shape[1])
+            with timer('forecast/rollout'):
+                preds = m.rollout(bev, batch, self.num_future)
             stack = bev[None, None].expand(1, m.decoder_num_layers,
                                            *bev.shape)
-            return m.decode_from_features(
-                torch.cat([stack, preds]), batch.gt_points, batch.gt_tindex,
-                batch.cur2ref, batch.ref2cur, self.num_future)
+            with timer('forecast/decode'):
+                return m.decode_from_features(
+                    torch.cat([stack, preds]), batch.gt_points,
+                    batch.gt_tindex, batch.cur2ref, batch.ref2cur,
+                    self.num_future)

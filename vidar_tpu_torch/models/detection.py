@@ -228,3 +228,34 @@ class BEVFormerHead(nn.Module):
             for c, b in zip(preds['all_cls_scores'][-1],
                             preds['all_bbox_preds'][-1])]
         return {k: torch.stack([d[k] for d in per]) for k in per[0]}
+
+
+class BEVFormerHeadGroupDETR(BEVFormerHead):
+    """Group-DETR variant (vidar_tpu/models/detection.py:277-301, reference
+    bevformer_head.py:513+ BEVFormerHead_GroupDETR, registered but unused by
+    the released configs): ``group_detr`` groups of ``num_query //
+    group_detr`` queries share the decoder; at train time each group is
+    matched to the GT on its own (one-to-many) and the loss is the mean
+    over the groups; inference decodes the first group only."""
+
+    def __init__(self, *args, group_detr: int = 1, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.group_detr = group_detr
+
+    def _group(self, preds, gi):
+        per = self.num_query // max(self.group_detr, 1)
+        sl = slice(gi * per, (gi + 1) * per)
+        return dict(all_cls_scores=preds['all_cls_scores'][:, :, sl],
+                    all_bbox_preds=preds['all_bbox_preds'][:, :, sl])
+
+    def loss(self, preds, gt_bboxes, gt_labels, num_valid_gt):
+        g = self.group_detr
+        losses = {}
+        for gi in range(g):
+            for k, v in super().loss(self._group(preds, gi), gt_bboxes,
+                                     gt_labels, num_valid_gt).items():
+                losses[k] = losses.get(k, 0.0) + v / g
+        return losses
+
+    def get_bboxes(self, preds):
+        return super().get_bboxes(self._group(preds, 0))
