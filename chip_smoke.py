@@ -2,8 +2,9 @@
 pre-training step, the BEVFormer detection fine-tune (eval, streaming eval
 and train step, in f32 and bf16), the train and test CLIs on the released
 configs, data parallelism across processes, UniAD (its eval, clip train
-step and CLIs), and the data path from raw nuScenes tables through the
-port's data-preparation tools, on one GPU.
+step and CLIs), the data path from raw nuScenes tables through the port's
+data-preparation tools, and the BEVFormerV2 family (with DD3D and
+InternImage), the voxel renderer and the visualisation tool, on one GPU.
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and the
 CUDA toolkit:
@@ -192,7 +193,38 @@ it drives; a kernel of the path that never launched fails the run:
    built, ``benchmark`` (3 samples) beside phase 4, ``profile_trace`` (its
    ``timer`` spans and device kernels in the trace), ``visibility_scan`` on
    the converted pkl; h: one video-replay train step of ``vidar_base`` in
-   bf16 at full width. ``p12_*_launches`` in the kernel line.
+   bf16 at full width. ``p12_*_launches`` in the kernel line;
+13. the BEVFormerV2 family, the voxel renderer and the visualisation tool
+   (``_phase13(counted, card, check, dev, fixture_dir, tables, data)``,
+   runnable alone after ``_build.load_library()`` with phase 9's fixture
+   and phase 12's tables). b: DD3D (``VoVNet('V-99-eSE')``, the port's FPN
+   to 5 levels at 256 channels, ``NuScenesDD3D``) on one camera image of
+   one sample of phase 12's converted train pkl (``NuScenesMonoDataset``,
+   its JPEG through the port's decoder): forward, ``loss`` on the
+   sample's targets, backward, ``inference`` with the class-wise NMS;
+   a: ``BEVFormerV2`` at the JAX defaults (embed 256, BEV 200x200, 900
+   queries, R101 with DCN in stages 3-4, 6 encoder layers, ``num_fusion``
+   3, frames (-1, 0)), f32, bs 1, 6 cameras at 928x1600, random 0.02-scale
+   weights: the eval forward and ``get_bboxes``, then a train step
+   (``loss`` with b's DD3D losses through the mono hook, backward,
+   ``make_optimizer``'s AdamW over both models), each with its launches
+   held to the counts the code gives (eval: K1 30, K9 52; step: K1 30, K5
+   18 for frame 0 only, K9 338 with the camera-sequential recompute), s/it
+   and peak memory, every kept K1, K5 and K9 input against its plain
+   version; the small-input V2 check, card vs CPU; c: InternImage-T on 6 x
+   928x1600, forward, backward and one ``make_layer_decay_optimizer`` step
+   (DCNv3 on K1 and K5, 30 launches each, held against their plain
+   versions by stage), then ``dcnv3_core``'s msda route against its plain
+   gather at each stage's shape (error, both times, K1's bound); d:
+   ``voxel_render_loss`` forward and backward and ``voxel_render_v2`` at
+   sigma [1, 3, 16, 200, 200], 32,768 rays, ``max_steps`` 417 (times, peak
+   memory), and a small-size card vs CPU check; e: the test CLI's
+   ``--viz-pcd`` on ``configs/tiny/vidar_tiny.py`` (6 cameras) on phase 9's
+   fixture, ``tools.visualize detections`` on a fine-tune ``--dump-viz``
+   pickle and ``browse``, every PNG read back by this script's own zlib
+   decoder (``_read_png``: size, colours). ``v2_eval_launches``,
+   ``v2_step_launches``, ``internimage_launches`` and
+   ``viz_*_cli_launches`` in the kernel line.
 
 The line before the last is a JSON object of per-kernel results; the last
 is ``{"ok": true, "device": {...}}``.
@@ -2813,7 +2845,9 @@ def _phase12_video(counted, card, dev):
 
 def _phase12(counted, card, check, fixture_dir, forecast_s, dev='cuda:0'):
     """Phase 12: the data path as users run it, end to end, then the rest
-    of the fine-tune, the analysis tools and the video step (12a-h)."""
+    of the fine-tune, the analysis tools and the video step (12a-h). ->
+    ({run: launches}, the converted tables' paths, which phase 13 reads;
+    they stay under ``fixture_dir``)."""
     dev = torch.device(dev)
     t0 = time.perf_counter()
     tmp = os.path.join(fixture_dir, 'nusc_tables')
@@ -2836,9 +2870,586 @@ def _phase12(counted, card, check, fixture_dir, forecast_s, dev='cuda:0'):
     del logits
     runs.update(_phase12_analysis(counted, card, paths, forecast_s, dev))
     runs.update(_phase12_video(counted, card, dev))
-    shutil.rmtree(tmp)
     print(f'phase 12: {time.perf_counter() - t0:.1f} s', flush=True)
+    return runs, paths
+
+# ------------------------------ phase 13: the BEVFormerV2 family and tools
+
+TINY_CONFIG = ROOT / 'configs' / 'tiny' / 'vidar_tiny.py'
+# the fine-tune config shrunk to tests/test_torch_cli.py's sizes, for the
+# detection dump that 13e renders
+FINETUNE_TINY = [
+    'model.embed_dims=32', 'model.bev_h=12', 'model.bev_w=12',
+    'model.num_query=24', 'model.backbone_depth=50',
+    'model.encoder_num_layers=2', 'model.latent_render_lids=(1,)',
+    "model.latent_render_cfg={'pred_height': 4, 'grid_num': 8, "
+    "'grid_step': 0.5, 'reduction': 8, 'act': 'sigmoid', 'embed_dims': 32}",
+    'data.train.bev_size=(12,12)', 'data.test.bev_size=(12,12)',
+    'data.train.queue_length=2', 'data.test.queue_length=2']
+# R101's deformable blocks in stages 3-4 (backbone_dcn (F, F, T, T))
+R101_DCN_BLOCKS = 23 + 3
+# 13a's small check: tests/test_torch_bevformer_v2.py's model with DCN in
+# stages 3-4, so that K9 runs too
+V2_TINY = dict(embed_dims=32, bev_h=8, bev_w=8, num_cams=3, num_query=16,
+               backbone_depth=50, backbone_dcn=(False, False, True, True),
+               frames=(-1, 0), num_fusion=1, encoder_num_layers=1)
+# 13d: vidar_base's grid (16 x 200 x 200), 3 frames, 32,768 rays
+VOXEL_GRID, VOXEL_FRAMES, VOXEL_RAYS = (16, 200, 200), 3, 32768
+VOXEL_STEPS = 417                    # Z + H + W + 1
+
+
+def _read_png(path):
+    """This script's own PNG reader (zlib; rows of filter type 0, as the
+    port's writer makes them): an 8-bit RGB PNG -> [h, w, 3] uint8."""
+    with open(path, 'rb') as f:
+        data = f.read()
+    if data[:8] != b'\x89PNG\r\n\x1a\n':
+        raise RuntimeError(f'{path}: not a PNG')
+    pos, idat, hdr = 8, [], None
+    while pos < len(data):
+        n, kind = struct.unpack('>I4s', data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if kind == b'IHDR':
+            hdr = struct.unpack('>IIBBBBB', body)
+        elif kind == b'IDAT':
+            idat.append(body)
+    w, h, depth, ctype = hdr[:4]
+    raw = np.frombuffer(zlib.decompress(b''.join(idat)), np.uint8).reshape(
+        h, 1 + 3 * w)
+    if (depth, ctype) != (8, 2) or raw[:, 0].any():
+        raise RuntimeError(f'{path}: PNG of depth {depth}, type {ctype}, '
+                           f'row filters {sorted(set(raw[:, 0]))}')
+    return raw[:, 1:].reshape(h, w, 3)
+
+
+def _png_check(path, shape, colors):
+    """A PNG of ``shape`` [h, w] holding every one of ``colors`` ('#rrggbb')
+    -> its pixel counts of each."""
+    img = _read_png(path)
+    if img.shape[:2] != tuple(shape):
+        raise RuntimeError(f'{path}: {img.shape[:2]}, not {shape}')
+    counts = {}
+    for c in colors:
+        rgb = np.array([int(c[i:i + 2], 16) for i in (1, 3, 5)], np.uint8)
+        counts[c] = int((img == rgb).all(-1).sum())
+        if not counts[c]:
+            raise RuntimeError(f'{path}: no pixel of colour {c}')
+    return counts
+
+
+class _Mono(torch.nn.Module):
+    """13b's DD3D: VoVNet-99 (eSE), the port's FPN to 5 levels at 256
+    channels (strides 8-128) and ``NuScenesDD3D``. ``losses`` runs one
+    camera image of one sample through it against the sample's targets."""
+
+    def __init__(self, dev, image, gt, inv_k):
+        super().__init__()
+        from vidar_tpu_torch.models.dd3d import NuScenesDD3D
+        from vidar_tpu_torch.models.fpn import FPN
+        from vidar_tpu_torch.models.vovnet import VoVNet
+        self.img_backbone = VoVNet('V-99-eSE', device=dev)
+        self.img_neck = FPN((512, 768, 1024), 256, num_outs=5, device=dev)
+        self.head = NuScenesDD3D(channels=256, device=dev)
+        self.image, self.gt, self.inv_k = image, gt, inv_k
+
+    def forward(self):
+        return self.head(self.img_neck(self.img_backbone(self.image)))
+
+    def losses(self):
+        return self.head.loss(self(), self.gt, self.inv_k)
+
+
+def _phase13_mono(card, dev, tables):
+    """13b: DD3D on one camera image of one sample of phase 12's converted
+    train pkl (``NuScenesMonoDataset``, its JPEG camera through the port's
+    decoder): forward, ``loss`` on the sample's targets, backward, then
+    ``inference`` with the class-wise NMS. -> the model, which 13a's train
+    step reads for its mono losses."""
+    from vidar_tpu_torch.data.nuscenes_mono import NuScenesMonoDataset
+
+    ds = NuScenesMonoDataset(tables['pkl']['train'], data_root=tables['root'])
+    item = next(ds[i] for i in range(len(ds)) if ds[i]['num_valid'] > 0)
+    t0 = time.perf_counter()
+    img = ds.load_image(item)
+    load_s = time.perf_counter() - t0
+    mean = np.array([103.530, 116.280, 123.675], np.float32)
+    image = torch.from_numpy(img - mean)[None].to(dev)
+    gt = {k: torch.as_tensor(np.asarray(item[k])).to(dev) for k in (
+        'boxes2d', 'labels', 'num_valid', 'quat', 'proj_ctr', 'depth',
+        'size')}
+    inv_k = torch.linalg.inv(torch.from_numpy(item['intrinsics']).double()
+                             ).float().to(dev)
+    mono = _Mono(dev, image, gt, inv_k)
+    _unit_scale_(mono, torch.Generator(device=dev).manual_seed(131))
+    mono.train()
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        mono.zero_grad(set_to_none=True)
+        t0 = time.perf_counter()
+        losses = mono.losses()
+        sum(losses.values()).backward()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    vals = {k: float(v.detach()) for k, v in losses.items()}
+    grads = [p.grad for p in mono.parameters() if p.grad is not None]
+    # a positive location of the sample's boxes carries a box loss
+    if not all(np.isfinite(v) for v in vals.values()) or not grads or \
+            not all(bool(torch.isfinite(g).all()) for g in grads) or \
+            not vals['loss_box2d_reg'] > 0:
+        raise RuntimeError(f'phase 13b: DD3D losses {vals}')
+    mono.eval()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        det = mono.head.inference(mono(), inv_k)
+        torch.cuda.synchronize()
+    inf_s = time.perf_counter() - t0
+    kept = int((det['scores'] > 0).sum())
+    if not (bool(torch.isfinite(det['corners3d']).all()) and
+            det['scores'].shape == (100,) and 0 < kept):
+        raise RuntimeError(f'phase 13b: DD3D inference kept {kept}')
+    print(f'phase 13b: DD3D (VoVNet V-99-eSE + FPN 5 x 256, strides 8-128) '
+          f'on {item["image_path"].split("/")[-1]} ({img.shape[0]}x'
+          f'{img.shape[1]}, decoded in {load_s:.3f} s, '
+          f'{int(item["num_valid"])} GT boxes): forward + loss + backward '
+          f'{" ".join(f"{t:.4f}" for t in times)} s (first with warm-up), '
+          f'peak memory {peak / 2**30:.2f} GiB; losses {json.dumps(vals)}; '
+          f'inference with NMS {inf_s:.4f} s, {kept} detections kept of '
+          f'{mono.head.pre_nms_topk} candidates on {card}', flush=True)
+    mono.train()
+    return mono
+
+
+def _phase13_v2(counted, card, check, dev, mono):
+    """13a: BEVFormerV2 at the JAX defaults (embed 256, BEV 200x200, 900
+    queries, R101 with DCN in stages 3-4, 6 encoder layers, num_fusion 3),
+    frames (-1, 0), f32, bs 1, 6 cameras at 928x1600, 40 GT boxes of 128,
+    random 0.02-scale weights: the eval forward and ``get_bboxes``, then a
+    train step (forward, ``loss`` with ``mono``'s DD3D losses through the
+    mono hook, backward, ``make_optimizer``'s AdamW over both models),
+    each counted and its kernels held against their plain versions on the
+    kept inputs; then the small-input check, card kernels vs the CPU's
+    plain versions. -> {run: launches}."""
+    from vidar_tpu_torch.core.builder import build_model
+    from vidar_tpu_torch.data import (make_synthetic_batch,
+                                      make_synthetic_det_batch)
+    from vidar_tpu_torch.models import BEVFormerV2
+    from vidar_tpu_torch.ops import dcn, msda
+    from vidar_tpu_torch.train import make_optimizer
+
+    runs = {}
+    model = build_model(dict(type='BEVFormerV2', frames=(-1, 0)), device=dev)
+    model.randomize_(torch.Generator(device=dev).manual_seed(13), 0.02)
+    layers, q = 6, model.pts_bbox_head_det.num_query
+    batch = make_synthetic_det_batch(
+        np.random.default_rng(0), bs=1, queue_length=1, num_cams=6,
+        img_h=928, img_w=1600, max_points=64, max_gt=128, num_gt=40,
+        device=dev)
+    frames = len(model.frames)
+    # by the code: a frame's encode runs K1 in each layer's TSA and SCA,
+    # the decoder K1 in each of its 6 layers, the backbone K9 in each
+    # deformable block; the step's backward K5 for frame 0's attentions
+    # only, and its camera-sequential backbone K9 once a camera forward
+    # and once again in the recompute
+    want = {'v2_eval': {msda.KERNEL.name: 2 * layers * frames + 6,
+                        dcn.SAMPLE.name: R101_DCN_BLOCKS * frames,
+                        msda.BACKWARD.name: 0},
+            'v2_step': {msda.KERNEL.name: 2 * layers * frames + 6,
+                        msda.BACKWARD.name: 2 * layers + 6,
+                        dcn.SAMPLE.name: R101_DCN_BLOCKS * (1 + 2 * 6)}}
+
+    def keepers(train):
+        k = {msda.KERNEL.name: _Keeper(lambda a: _msda_case(a, 'v2_')),
+             dcn.SAMPLE.name: _Keeper(
+                 lambda a: f'v2_{_dcn_image_case(a)}')}
+        if train:
+            k[msda.BACKWARD.name] = _Keeper(lambda a: _msda_case(a, 'v2_'))
+        return k
+
+    def need(run, launches):
+        runs[run] = launches
+        got = {k: launches[k] for k in want[run]}
+        off = [k.name for k in (dcn.KERNEL, dcn.SAMPLE16) if launches[k.name]]
+        if got != want[run] or off:
+            raise RuntimeError(f'phase 13a {run}: launches {got}, by the '
+                               f'code {want[run]}; {off} launched off the '
+                               f'path')
+
+    def evaluate():
+        with torch.inference_mode():
+            preds = model(batch.frames, train=False)
+            return preds, model.get_bboxes(preds)
+
+    model.eval()
+    kept = keepers(False)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (preds, det), launches = _run_counted(counted, kept, evaluate)
+    warm = time.perf_counter() - t0
+    need('v2_eval', launches)
+    if not (bool(torch.isfinite(preds['all_cls_scores']).all()) and
+            bool(torch.isfinite(det['bboxes']).all()) and
+            tuple(preds['all_cls_scores'].shape) == (6, 1, q, 10)):
+        raise RuntimeError('phase 13a: non-finite or malformed V2 outputs')
+    check('v2_eval', kept, launches)
+    del preds, det
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        t0 = time.perf_counter()
+        evaluate()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    print(f'phase 13a: BEVFormerV2 eval (f32, frames (-1, 0), 6 x 928x1600, '
+          f'900 queries, 200x200 BEV, R101-DCN, 6 encoder layers, fusion 3 x '
+          f'512): {warm:.3f} s with warm-up, then '
+          f'{" ".join(f"{t:.4f}" for t in times)} s -> '
+          f'{sum(times) / len(times):.4f} s/it, peak memory '
+          f'{peak / 2**30:.2f} GiB on {card}', flush=True)
+
+    both = torch.nn.ModuleDict(dict(v2=model, mono=mono))
+    opt = make_optimizer(both, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    model.train()
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        preds = model(batch.frames, train=True, generator=gen)
+        losses = model.loss(preds, batch.gt_bboxes, batch.gt_labels,
+                            batch.num_valid_gt, mono.losses())
+        sum(losses.values()).backward()
+        norm = opt.step()
+        return {k: float(v.detach()) for k, v in losses.items()}, float(norm)
+
+    before = [p.detach().clone() for p in model.parameters()]
+    kept = keepers(True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    (losses, norm), launches = _run_counted(counted, kept, step)
+    warm = time.perf_counter() - t0
+    need('v2_step', launches)
+    moved = sum(bool((p.detach() != b).any())
+                for p, b in zip(model.parameters(), before))
+    del before
+    mono_keys = sorted(k for k in losses if k.endswith('_mono'))
+    if not (all(np.isfinite(v) for v in losses.values()) and norm > 0 and
+            moved and len(mono_keys) == 8):
+        raise RuntimeError(f'phase 13a: step losses {losses}, norm {norm}, '
+                           f'{moved} parameters moved')
+    check('v2_step', kept, launches)
+    times = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        t0 = time.perf_counter()
+        losses, norm = step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    print(f'phase 13a: BEVFormerV2 train step (frame 0 with gradient, its '
+          f'backbone camera by camera; the DD3D mono losses {mono_keys} '
+          f'through the hook x {model.mono_loss_weight}): {warm:.3f} s with '
+          f'warm-up, then {" ".join(f"{t:.4f}" for t in times)} s -> '
+          f'{sum(times) / len(times):.4f} s/it, peak memory '
+          f'{peak / 2**30:.2f} GiB; {moved} of {len(list(model.parameters()))}'
+          f' V2 parameters moved; grad_norm {norm:.5g}; losses '
+          f'{json.dumps(losses)} on {card}', flush=True)
+    del model, both, opt
+    torch.cuda.empty_cache()
+
+    # small input: card kernels vs the CPU's plain versions, same weights
+    # and batch
+    tiny = BEVFormerV2(**V2_TINY, device=dev).eval()
+    _unit_scale_(tiny, torch.Generator(device=dev).manual_seed(15))
+    tiny_cpu = BEVFormerV2(**V2_TINY, device='cpu').eval()
+    tiny_cpu.load_state_dict({k: v.cpu() for k, v in
+                              tiny.state_dict().items()})
+    sb = make_synthetic_batch(np.random.default_rng(0), bs=1,
+                              queue_length=1, future_length=0, num_cams=3,
+                              img_h=64, img_w=64, max_points=64,
+                              device='cpu')
+    for k in counted:
+        k.launches = 0
+    sides = []
+    for m, d in ((tiny, dev), (tiny_cpu, 'cpu')):
+        with torch.inference_mode():
+            sides.append(m(sb.to(d), train=False))
+    if not (msda.KERNEL.launches and dcn.SAMPLE.launches):
+        raise RuntimeError('phase 13a: the small V2 ran no K1 or K9')
+    errs = {k: ((sides[0][k].cpu() - sides[1][k]).abs().max() /
+                sides[1][k].abs().max()).item()
+            for k in ('all_cls_scores', 'all_bbox_preds')}
+    print(f'phase 13a: small input (V2 tiny, DCN in stages 3-4, 64x64, f32), '
+          f'card vs CPU plain, max err / max|CPU|: {json.dumps(errs)}',
+          flush=True)
+    # f32 on both sides: sums in other orders through ~60 layers, the CPU
+    # tests' 1e-3 against the JAX package
+    if max(errs.values()) > 1e-3:
+        raise RuntimeError('phase 13a: the small V2 disagrees with the CPU')
     return runs
+
+
+def _phase13_internimage(counted, card, check, dev):
+    """13c: InternImage-T (channels 64, depths (4, 4, 18, 4), groups (4, 8,
+    16, 32)) on one frame's 6 images at 928x1600, 0.02-scale inputs'
+    weights as ``_unit_scale_``: forward, backward (a sum of squares over
+    its outputs), one ``make_layer_decay_optimizer`` step; DCNv3 runs K1
+    and K5, once each a block, held against their plain versions at each
+    stage's kept inputs; then ``dcnv3_core`` (the msda route) against
+    ``dcnv3_core_plain`` at each stage's shape. -> {run: launches}."""
+    from vidar_tpu_torch.models.internimage import InternImage
+    from vidar_tpu_torch.ops import msda
+    from vidar_tpu_torch.ops.dcnv3 import dcnv3_core, dcnv3_core_plain
+    from vidar_tpu_torch.train import make_layer_decay_optimizer
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    net = torch.nn.ModuleDict(dict(img_backbone=InternImage(device=dev)))
+    _unit_scale_(net, gen)
+    blocks = sum(net.img_backbone.depths)
+    opt = make_layer_decay_optimizer(net, device=dev)
+    x = torch.randn(6, 928, 1600, 3, generator=gen, device=dev)
+
+    def case(a):
+        (h, w), = a['spatial_shapes']
+        return f'dcnv3_{h}x{w}'
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        outs = net.img_backbone(x)
+        loss = sum((o.float() ** 2).mean() for o in outs)
+        loss.backward()
+        return float(loss), float(opt.step()), [tuple(o.shape) for o in outs]
+
+    kept = {msda.KERNEL.name: _Keeper(case), msda.BACKWARD.name: _Keeper(case)}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (loss, norm, shapes), launches = _run_counted(counted, kept, step)
+    warm = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    got = (launches[msda.KERNEL.name], launches[msda.BACKWARD.name])
+    if got != (blocks, blocks) or not (np.isfinite(loss) and norm > 0):
+        raise RuntimeError(f'phase 13c: K1/K5 launches {got}, not '
+                           f'{blocks} each; loss {loss}, norm {norm}')
+    check('internimage', kept, launches)
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    st = time.perf_counter() - t0
+    groups = {g['lr_mult'] for g in opt.param_groups}
+    print(f'phase 13c: InternImage-T on 6 x 928x1600: outputs {shapes}; '
+          f'forward + backward + layer-decay AdamW ({len(groups)} '
+          f'multipliers) {warm:.3f} s with warm-up, then {st:.4f} s/it, '
+          f'peak memory {peak / 2**30:.2f} GiB; DCNv3 K1 {got[0]} and K5 '
+          f'{got[1]} launches ({blocks} blocks) on {card}', flush=True)
+    del net, opt, x
+    torch.cuda.empty_cache()
+
+    # dcnv3_core's card route (K1, with its coordinate arithmetic) against
+    # its plain gather at each stage's shape
+    ch, hh, ww = 64, 232, 400
+    for stage, g in enumerate((4, 8, 16, 32)):
+        xs = torch.randn(6, hh, ww, ch, generator=gen, device=dev)
+        off = torch.randn(6, hh, ww, g * 18, generator=gen, device=dev) * 2
+        mk = torch.randn(6, hh, ww, g * 9, generator=gen, device=dev)
+        keep = _Keeper(lambda a: 'x')
+        msda.KERNEL.on_launch = keep
+        got = dcnv3_core(xs, off, mk, groups=g)
+        msda.KERNEL.on_launch = None
+        want = dcnv3_core_plain(xs, off, mk, groups=g)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        ms = _time_ms(lambda: dcnv3_core(xs, off, mk, groups=g))
+        plain_ms = _time_ms(lambda: dcnv3_core_plain(xs, off, mk, groups=g))
+        bound_ms, by = _bound(*_cost(msda.KERNEL.name, keep.inputs['x'],
+                                     _nbytes(got)))
+        print(f'phase 13c: dcnv3_core stage {stage + 1} ({hh}x{ww}, C {ch}, '
+              f'{g} groups x 9 points, 6 images): msda route {ms:.3f} ms, '
+              f'plain {plain_ms:.3f} ms, K1 bound {bound_ms:.4f} ms ({by}); '
+              f'max_abs_err {err:.3g} (max|plain| {scale:.4g}) on {card}',
+              flush=True)
+        # f32 sums in other orders and the (pixel + 0.5) / size round trip
+        if not err <= 1e-4 * scale:
+            raise RuntimeError(f'phase 13c: dcnv3_core stage {stage + 1} '
+                               f'disagrees with its plain version')
+        del xs, off, mk, got, want, keep
+        ch, hh, ww = 2 * ch, -(-hh // 2), -(-ww // 2)
+    return {'internimage': launches}
+
+
+def _phase13_voxel(card, dev):
+    """13d: the voxel renderer at ``vidar_base``'s grid: sigma [1, 3, 16,
+    200, 200], 32,768 rays from 3 frame origins, ``max_steps`` 417:
+    ``voxel_render_loss`` forward and backward, ``voxel_render_v2``; then a
+    small-size check against the CPU."""
+    from vidar_tpu_torch.ops import voxel_render as vr
+
+    z, h, w = VOXEL_GRID
+    rng = np.random.default_rng(17)
+
+    def rays(n_rays, t, grid):
+        zz, hh, ww = grid
+        origin = np.array([[ww / 2, hh / 2, zz / 2]], np.float32) + \
+            rng.uniform(-2, 2, (t, 3)).astype(np.float32)
+        az = rng.uniform(-np.pi, np.pi, n_rays)
+        el = rng.uniform(-0.15, 0.1, n_rays)
+        length = rng.uniform(3, 0.7 * ww, n_rays)
+        tindex = rng.integers(0, t, n_rays).astype(np.int32)
+        tindex[::16] = -1                      # padding
+        d = np.stack([np.cos(az) * np.cos(el), np.sin(az) * np.cos(el),
+                      np.sin(el)], -1)
+        points = origin[np.maximum(tindex, 0)] + d * length[:, None]
+        return (origin[None], points[None].astype(np.float32), tindex[None])
+
+    origin, points, tindex = (torch.from_numpy(a).to(dev) for a in rays(
+        VOXEL_RAYS, VOXEL_FRAMES, VOXEL_GRID))
+    gen = torch.Generator(device=dev).manual_seed(18)
+    sigma = (torch.rand(1, VOXEL_FRAMES, z, h, w, generator=gen,
+                        device=dev) * 0.2).requires_grad_()
+    regul = torch.rand(sigma.shape, generator=gen, device=dev)
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        sigma.grad = None
+        t0 = time.perf_counter()
+        pred, gt, per_ray = vr.voxel_render_loss(sigma, origin, points,
+                                                 tindex, max_steps=VOXEL_STEPS)
+        per_ray.sum().backward()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        v2 = vr.voxel_render_v2(sigma, origin, points, tindex, regul,
+                                max_steps=VOXEL_STEPS)
+        torch.cuda.synchronize()
+    v2_s = time.perf_counter() - t0
+    hit = int((gt > 0).sum())
+    if not (bool(torch.isfinite(pred).all()) and hit > VOXEL_RAYS // 2 and
+            bool(torch.isfinite(sigma.grad).all()) and
+            float(sigma.grad.abs().sum()) > 0 and
+            torch.equal(v2[0], pred.detach())):
+        raise RuntimeError(f'phase 13d: voxel render: {hit} rays hit')
+    print(f'phase 13d: voxel_render_loss (l1) at sigma {list(sigma.shape)}, '
+          f'{VOXEL_RAYS} rays ({hit} hit the grid), max_steps {VOXEL_STEPS}: '
+          f'forward + backward {" ".join(f"{t:.4f}" for t in times)} s (first'
+          f' with warm-up), peak memory {peak / 2**30:.2f} GiB; '
+          f'voxel_render_v2 {v2_s:.4f} s, ray_pred mean '
+          f'{v2[2][v2[3] > 0].mean().item():.4f} on {card}', flush=True)
+    del pred, gt, per_ray, v2, sigma, regul
+
+    # small size: the card against the CPU, forward and d sigma
+    small = [torch.from_numpy(a) for a in rays(64, 2, (4, 8, 8))]
+    s_cpu = torch.from_numpy(rng.uniform(0, 0.6, (1, 2, 4, 8, 8)).astype(
+        np.float32))
+    sides = []
+    for d in (dev, 'cpu'):
+        s = s_cpu.to(d).requires_grad_()
+        pred, _, per_ray = vr.voxel_render_loss(
+            s, *(a.to(d) for a in small), max_steps=32)
+        per_ray.sum().backward()
+        sides.append((pred.detach().cpu(), s.grad.cpu()))
+    errs = [((a - b).abs().max() / b.abs().max()).item()
+            for a, b in zip(*sides)]
+    print(f'phase 13d: small size (2 x 4x8x8, 64 rays), card vs CPU: pred '
+          f'{errs[0]:.3g}, d sigma {errs[1]:.3g} of the largest', flush=True)
+    if max(errs) > 1e-5:
+        raise RuntimeError('phase 13d: the voxel renderer on the card '
+                           'disagrees with the CPU')
+
+
+def _phase13_viz(counted, card, tmp, data):
+    """13e: the test CLI's ``--viz-pcd`` on the tiny forecast config (6
+    cameras) on phase 9's fixture, ``tools.visualize detections`` on a
+    ``--dump-viz`` pickle of the fine-tune config at test size and
+    ``browse`` on the fixture; every PNG read back by ``_read_png``. ->
+    {run: launches}."""
+    from vidar_tpu_torch.tools import test as test_cli
+    from vidar_tpu_torch.tools import visualize
+
+    runs, t0 = {}, time.perf_counter()
+    prefix = os.path.join(tmp, 'dbg', 'pred_pcd')
+    tiny = [o for o in data if o.startswith('data.test')] + [
+        'model.num_cams=6']
+    _, runs['viz_forecast_cli'] = _cli_run(
+        counted, card, 'test --viz-pcd (vidar_tiny)', test_cli.main,
+        [str(TINY_CONFIG), '--max-samples', '1', '--viz-pcd', '--viz-path',
+         prefix, '--cfg-options', *tiny])
+    plots = sorted(p for p in os.listdir(os.path.dirname(prefix))
+                   if p.startswith('pred_pcd_sample0_'))
+    if not plots:
+        raise RuntimeError('phase 13e: --viz-pcd wrote no plot')
+    n = visualize.BEV_PIXELS
+    pcd = [_png_check(os.path.join(tmp, 'dbg', p), (n, n), (
+        visualize.PRED_COLOR, visualize.GT_PCD_COLOR)) for p in plots]
+    dump = os.path.join(tmp, 'dump_viz.pkl')
+    _, runs['viz_dump_cli'] = _cli_run(
+        counted, card, 'test --dump-viz (fine-tune at test size)',
+        test_cli.main, [str(FINETUNE_CONFIG), '--max-samples', '1',
+                        '--dump-viz', dump, '--cfg-options', *data,
+                        *FINETUNE_TINY])
+    det_dir = os.path.join(tmp, 'viz_det')
+    if visualize.main(['detections', dump, '--out-dir', det_dir,
+                       '--num-samples', '1']) != 1:
+        raise RuntimeError('phase 13e: detections rendered nothing')
+    with open(dump, 'rb') as f:
+        rec = pickle.load(f)['s0']
+    cams, ih, iw = rec['images'].shape[:3]
+    step = max(1, -(-iw // visualize.PANEL_WIDTH))
+    grid = _png_check(os.path.join(det_dir, 's0.png'),
+                      (4 * -(-ih // step), 3 * -(-iw // step)), ())
+    bev = _png_check(os.path.join(det_dir, 's0_bev.png'), (n, n),
+                     (visualize.GT_BOX_COLOR,))
+    browse_dir = os.path.join(tmp, 'browse')
+    if visualize.main(['browse', str(TINY_CONFIG), '--out-dir', browse_dir,
+                       '--num-samples', '2', '--cfg-options',
+                       *[o for o in data if o.startswith('data.train')]]
+                      ) != 2:
+        raise RuntimeError('phase 13e: browse rendered no sample')
+    browse = [_png_check(os.path.join(browse_dir, f'sample{i}.png'), (n, n),
+                         (visualize.PRED_COLOR,)) for i in range(2)]
+    print(f'phase 13e: --viz-pcd wrote {len(plots)} plots ({n}x{n}; pred '
+          f'and GT pixels {[list(c.values()) for c in pcd]}); the '
+          f'detection render of a {cams}-camera {ih}x{iw} dump: grid '
+          f'{grid}, BEV GT pixels {list(bev.values())}; browse: 2 plots '
+          f'({[list(c.values()) for c in browse]} points); every PNG read '
+          f'back by this script\'s decoder; {time.perf_counter() - t0:.1f} s',
+          flush=True)
+    return runs
+
+
+def _phase13(counted, card, check, dev, fixture_dir, tables, data):
+    """Phase 13: the BEVFormerV2 family, the voxel renderer and the
+    visualisation tool (13a-e). ``check(run, keepers, launches)`` holds
+    each kept K1, K5 and K9 input against its plain version. ->
+    {run: launches}."""
+    dev = torch.device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    spans = {}
+    mono = _phase13_mono(card, dev, tables)
+    spans['13b'] = time.perf_counter() - t0
+    runs = _phase13_v2(counted, card, check, dev, mono)
+    spans['13a'] = time.perf_counter() - t0 - sum(spans.values())
+    del mono
+    torch.cuda.empty_cache()
+    runs.update(_phase13_internimage(counted, card, check, dev))
+    spans['13c'] = time.perf_counter() - t0 - sum(spans.values())
+    _phase13_voxel(card, dev)
+    spans['13d'] = time.perf_counter() - t0 - sum(spans.values())
+    runs.update(_phase13_viz(counted, card, fixture_dir, data))
+    spans['13e'] = time.perf_counter() - t0 - sum(spans.values())
+    print(f'phase 13: {time.perf_counter() - t0:.1f} s '
+          f'({json.dumps({k: round(v, 1) for k, v in spans.items()})})',
+          flush=True)
+    return runs
+
 
 # ------------------------------------- phase 10: data parallelism
 
@@ -3565,8 +4176,8 @@ def main() -> int:
                _cost(counter.name, args, _nbytes(*got)), n)
         return ok
 
-    def compare_backwards(kept, render_case, n):
-        """K5 on every kept case, K6/K7 and K8 on ``render_case`` -> [ok]."""
+    def compare_msda_backwards(kept, n):
+        """K5 on every kept case -> [ok]."""
         oks = []
         for case, a in sorted(kept[msda.BACKWARD.name].inputs.items()):
             shapes = a['spatial_shapes']
@@ -3578,6 +4189,11 @@ def main() -> int:
                 lambda v, lo, w, s=shapes: msda.msdeform_attn_plain(v, s, lo,
                                                                     w),
                 (a['value'], a['loc'], a['weights']), n))
+        return oks
+
+    def compare_backwards(kept, render_case, n):
+        """K5 on every kept case, K6/K7 and K8 on ``render_case`` -> [ok]."""
+        oks = compare_msda_backwards(kept, n)
         a = kept[latent_render.FIRST_HIT_BACKWARD.name].inputs[render_case]
         geo = (a['grids'], a['radial_norm'], a['steps'])
 
@@ -4102,6 +4718,45 @@ def main() -> int:
             raise RuntimeError(f'{run}: a kernel disagrees with its plain '
                                f'version on the bf16 fine-tune')
 
+    def check_v2(run, keepers, n):
+        """Every kernel of a phase-13 run against its plain version on the
+        f32 inputs the run kept: K1 at each attention (the V2 encoder's TSA
+        and SCA, its detection decoder, InternImage's DCNv3 by stage), K9
+        at each ResNet call, K5 at each case of a train run; at the
+        tolerances of phases 3-7, cudnn's TF32 off."""
+        torch.backends.cudnn.allow_tf32 = False
+        oks = []
+        for case, a in sorted(keepers[msda.KERNEL.name].inputs.items()):
+            if a['value'].dtype != torch.float32:
+                raise RuntimeError(f'{case}: K1 took {a["value"].dtype} '
+                                   f'values on an f32 path')
+            oks.append(compare(
+                msda.KERNEL, f'{case},float32', a,
+                lambda a=a: msda.msda_forward_cuda(a['value'],
+                                                   a['spatial_shapes'],
+                                                   a['loc'], a['weights']),
+                lambda a=a: msda.msdeform_attn_plain(a['value'],
+                                                     a['spatial_shapes'],
+                                                     a['loc'], a['weights']),
+                n=n))
+        if dcn.SAMPLE.name in keepers:
+            for case, a in sorted(keepers[dcn.SAMPLE.name].inputs.items()):
+                args = (a['x'], a['sx'], a['sy'], a['mask'])
+                oks.append(compare_dcn_taps(
+                    dcn.SAMPLE, case, a,
+                    lambda args=args: dcn.dcn_sample_cuda(*args),
+                    lambda args=args: dcn.dcn_sample_plain(*args), n))
+        if msda.BACKWARD.name in keepers:
+            oks += compare_msda_backwards(keepers, n)
+        print(f'{run}: {len(oks)} kernel cases against their plain '
+              f'versions on the run\'s own inputs, {sum(oks)} within '
+              f'tolerance', flush=True)
+        keepers.clear()
+        torch.cuda.empty_cache()
+        if not all(oks):
+            raise RuntimeError(f'{run}: a kernel disagrees with its plain '
+                               f'version')
+
     with tempfile.TemporaryDirectory() as fixture_dir:
         cli, data = _phase9(counted, card, check_cli, fixture_dir)
 
@@ -4120,7 +4775,13 @@ def main() -> int:
 
         # -- phase 12: the data path from raw tables, the rest of the
         # fine-tune, the analysis tools and the video step
-        later = _phase12(counted, card, check_bf16, fixture_dir, forecast_s)
+        later, tables = _phase12(counted, card, check_bf16, fixture_dir,
+                                 forecast_s)
+
+        # -- phase 13: the BEVFormerV2 family, the voxel renderer and the
+        # visualisation tool
+        v2_runs = _phase13(counted, card, check_v2, dev, fixture_dir,
+                           tables, data)
 
     for r in results:
         base = r['name'].split('[')[0]
@@ -4133,7 +4794,7 @@ def main() -> int:
         for rank, parts in dp.items():
             r[f'dp_rank{rank}_launches'] = parts['pretrain'][base]
             r[f'dp_finetune_rank{rank}_launches'] = parts['finetune'][base]
-        for run, launches in {**uniad, **later}.items():
+        for run, launches in {**uniad, **later, **v2_runs}.items():
             r[f'{run}_launches'] = launches[base]
     print(json.dumps({'kernels': results}))
     print(json.dumps({'ok': True, 'device': {

@@ -233,8 +233,12 @@ def test_detection_eval(fake, finetuned, streaming, tmp_path):
 
 def test_builder_contract():
     cfg = load_config(TINY)['model']
-    with pytest.raises(KeyError, match='not ported'):
-        build_model(dict(cfg, type='BEVFormerV2'), device='cpu')
+    with pytest.raises(KeyError, match='unknown model type'):
+        build_model(dict(cfg, type='NoSuchModel'), device='cpu')
+    # every model type of the JAX package's builder is ported
+    assert type(build_model(dict(type='BEVFormerV2', embed_dims=32, bev_h=4,
+                                 bev_w=4, num_query=8, backbone_depth=50),
+                            device='cpu')).__name__ == 'BEVFormerV2'
     # the JAX CLI's remat switch is taken and dropped; a dtype string from
     # --cfg-options names a torch dtype
     model = build_model(dict(cfg, remat=True, dtype='bfloat16'),
@@ -253,11 +257,12 @@ def test_builder_contract():
 @pytest.mark.parametrize('flag', [['--viz-pcd'], ['--viz-path', 'dbg']],
                          ids=['viz-pcd', 'viz-path'])
 def test_unported_viz_flags_raise(flag):
-    # the JAX CLI's point-cloud dump flags are accepted but not ported: a
-    # command line that sets them fails rather than dumping nothing
-    with pytest.raises(NotImplementedError, match='--viz-pcd'):
-        test_cli.parse_args([str(TINY), *flag, '--device', 'cpu'])
-    assert test_cli.parse_args([str(TINY)]).viz_path is None
+    # the JAX CLI's point-cloud plot flags, with its default path; the
+    # plots themselves: tests/test_torch_visualize.py
+    args = test_cli.parse_args([str(TINY), *flag, '--device', 'cpu'])
+    assert args.viz_pcd == (flag[0] == '--viz-pcd')
+    assert args.viz_path == (flag[1] if len(flag) > 1 else 'dbg/pred_pcd')
+    assert test_cli.parse_args([str(TINY)]).viz_path == 'dbg/pred_pcd'
 
 
 def test_init_weights_follow_jax_conventions():

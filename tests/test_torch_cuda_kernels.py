@@ -1100,3 +1100,51 @@ def test_auction_on_the_card_equals_the_cpu(dev, g):
     assert card.device.type == 'cuda'
     assert torch.equal(card.cpu(), cpu)
     assert sorted(cpu[cpu >= 0].tolist()) == list(range(g))
+
+
+@pytest.mark.parametrize('case', ['stage1', 'stride2', 'dilation2',
+                                  'past-border'])
+def test_dcnv3_msda_route_matches_plain(dev, case):
+    """InternImage's DCNv3 core through K1 (forward) and K5 (backward)
+    against its plain gather, forward and gradients."""
+    from vidar_tpu_torch.ops.dcnv3 import (_sample_points, dcnv3_core,
+                                           dcnv3_core_plain)
+    stride, dilation, scale = {
+        'stage1': ((1, 1), (1, 1), 2.0), 'stride2': ((2, 2), (1, 1), 1.0),
+        'dilation2': ((1, 1), (2, 2), 1.0),
+        'past-border': ((1, 1), (1, 1), 8.0)}[case]
+    rng = np.random.default_rng(1)
+    b, h, w, groups, gc = 2, 58, 100, 4, 16
+    ho, wo = -(-h // stride[0]), -(-w // stride[1])
+    x = _t(rng.standard_normal((b, h, w, groups * gc)), dev)
+    offset = _t(rng.standard_normal((b, ho, wo, groups * 18)) * scale, dev)
+    mask = _t(rng.standard_normal((b, ho, wo, groups * 9)), dev)
+    g = _t(rng.standard_normal((b, ho, wo, groups * gc)), dev)
+    kw = dict(stride=stride, dilation=dilation, groups=groups)
+    sides = []
+    before = (msda.KERNEL.launches, msda.BACKWARD.launches)
+    for fn in (dcnv3_core, dcnv3_core_plain):
+        ins = [t.clone().requires_grad_() for t in (x, offset, mask)]
+        out = fn(*ins, **kw)
+        out.backward(g)
+        sides.append([out.detach()] + [t.grad for t in ins])
+    torch.cuda.synchronize()
+    assert (msda.KERNEL.launches, msda.BACKWARD.launches) == (
+        before[0] + 1, before[1] + 1)
+    # bilinear sampling has a kink at each integer pixel coordinate: where
+    # the (pixel + 0.5) / size round trip moves a sample across one, the
+    # two routes take the offset's derivative from opposite sides. Such
+    # samples (within 1e-3 pixel) are left out of d offset, and are few
+    sx, sy, _ = _sample_points(offset, mask, (3, 3), stride, dilation,
+                               groups)
+    kink = (((sx - sx.round()).abs() < 1e-3) |
+            ((sy - sy.round()).abs() < 1e-3))
+    assert kink.float().mean().item() < 1e-2
+    keep = ~kink[..., None].expand(*kink.shape, 2).reshape(offset.shape)
+    sides = [[out, dx, doff * keep, dmask]
+             for out, dx, doff, dmask in sides]
+    # f32 sums in other orders (K5 scatters dx with atomics), and the
+    # round trip of each sample coordinate
+    for name, got, want in zip(('out', 'dx', 'doffset', 'dmask'), *sides):
+        err = (got - want).abs().max().item()
+        assert err <= 1e-4 * want.abs().max().item(), (name, err)

@@ -40,6 +40,14 @@ def test_imports_without_jax():
             'vidar_tpu_torch.tools.analysis',
             'vidar_tpu_torch.train.losses',
             'vidar_tpu_torch.train.video_runner'} <= set(mods)
+    # the BEVFormerV2 family, the voxel renderer and the visualisation tool
+    assert {'vidar_tpu_torch.models.bevformer_v2',
+            'vidar_tpu_torch.models.bev_head', 'vidar_tpu_torch.models.dd3d',
+            'vidar_tpu_torch.models.internimage',
+            'vidar_tpu_torch.models.vovnet', 'vidar_tpu_torch.ops.dcnv3',
+            'vidar_tpu_torch.ops.voxel_render',
+            'vidar_tpu_torch.data.nuscenes_mono',
+            'vidar_tpu_torch.tools.visualize'} <= set(mods)
     code = ("import sys\n"
             "for name in ('jax', 'jaxlib', 'flax', 'PIL', 'matplotlib'):\n"
             "    sys.modules[name] = None\n"

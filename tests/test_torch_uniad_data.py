@@ -254,7 +254,7 @@ def test_trajectory_smoother_equals_jax():
 
 @pytest.mark.parametrize('path', CONFIGS)
 def test_uniad_configs_build_through_the_port(fake, path):
-    assert NOT_PORTED == ('BEVFormerV2',)
+    assert NOT_PORTED == ()
     opts = TINY_MODEL + [f'data.train.ann_file={fake[0]}',
                          f'data.test.ann_file={fake[0]}',
                          'data.train.bev_size=(8,8)',

@@ -20,6 +20,12 @@ import torch.nn.functional as F
 POST_CENTER_RANGE = (-61.2, -61.2, -10.0, 61.2, 61.2, 10.0)
 
 
+def stable_topk(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k largest along the last dim, equal values in index
+    order (``jax.lax.top_k``'s tie rule)."""
+    return torch.sort(x, dim=-1, descending=True, stable=True)[1][..., :k]
+
+
 def normalize_bbox(bboxes: torch.Tensor) -> torch.Tensor:
     """[..., 9] (cx cy cz w l h rot vx vy) -> [..., 10] network format
     (cx cy log w, log l, cz, log h, sin rot, cos rot, vx, vy)."""

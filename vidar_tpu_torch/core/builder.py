@@ -14,17 +14,17 @@ MODELS: Dict[str, Callable] = {}
 DATASETS: Dict[str, Callable] = {}
 
 # registered by the JAX package's builder, not ported yet (ROADMAP.md queue 1)
-NOT_PORTED = ('BEVFormerV2',)
+NOT_PORTED = ()
 
 
 def _model_registry():
     if not MODELS:
-        from ..models import BEVFormer, BEVFormerFP16, ViDAR
+        from ..models import BEVFormer, BEVFormerFP16, BEVFormerV2, ViDAR
         from ..uniad import UniAD, UniADTrack
         MODELS.update(ViDAR=ViDAR, BEVFormer=BEVFormer,
                       BEVFormer_fp16=BEVFormerFP16,
-                      BEVFormerFP16=BEVFormerFP16, UniAD=UniAD,
-                      UniADTrack=UniADTrack)
+                      BEVFormerFP16=BEVFormerFP16, BEVFormerV2=BEVFormerV2,
+                      UniAD=UniAD, UniADTrack=UniADTrack)
     return MODELS
 
 

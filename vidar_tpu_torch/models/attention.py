@@ -10,6 +10,9 @@ output projection (rate 0.1) under ``train()``:
   normalised by the per-query camera count. A capacity of all queries
   gives the JAX package's dense-masked form.
 * ``PredictionMSDeformableAttention``: the future decoder's attention.
+
+``GroupMultiheadAttention`` (Group-DETR's self-attention) is a plain
+multi-head product, no deformable sampling.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.msda import msdeform_attn
-from .layers import DROPOUT, Dense
+from .layers import DROPOUT, Dense, MultiHeadDotProductAttention
 
 
 def offset_grid_bias(num_heads: int, num_levels: int,
@@ -278,3 +281,52 @@ class PredictionMSDeformableAttention(nn.Module):
                offsets / normalizer[None, None, None, :, None, :])
         out = msdeform_attn(value_p, list(spatial_shapes), loc, weights)
         return self.drop(self.output_proj(out.to(query.dtype))) + identity
+
+
+class GroupMultiheadAttention(nn.Module):
+    """Group-wise multi-head self-attention (vidar_tpu/models/attention.py:
+    483-533, reference modules/group_attention.py:18-162): under
+    ``train()``, with ``group`` > 1 dividing the query count, the queries
+    split into ``group`` blocks that attend only within their block (the
+    blocks folded into the batch); under ``eval()`` the full set attends.
+    ``attn`` is flax's multi-head attention (dropout ``attn_drop`` on its
+    weights), ``proj_drop`` drops its output; the residual is added last.
+    """
+
+    def __init__(self, embed_dims: int = 256, num_heads: int = 8,
+                 group: int = 1, attn_drop: float = 0.0,
+                 proj_drop: float = 0.0, dtype=None, device=None):
+        super().__init__()
+        self.group = group
+        self.attn = MultiHeadDotProductAttention(
+            embed_dims, num_heads, dtype=dtype, device=device,
+            dropout=attn_drop)
+        self.proj_drop = nn.Dropout(proj_drop)
+
+    def forward(self, query, key=None, value=None, identity=None,
+                query_pos=None, key_pos=None):
+        """query [bs, Q, C] -> [bs, Q, C]. ``key`` defaults to the query,
+        ``value`` to the key, ``identity`` to the query; ``key_pos`` to
+        ``query_pos`` where that has the key's shape."""
+        if key is None:
+            key = query
+        if value is None:
+            value = key
+        if identity is None:
+            identity = query
+        if (key_pos is None and query_pos is not None and
+                query_pos.shape == key.shape):
+            key_pos = query_pos
+        q = query + query_pos if query_pos is not None else query
+        k = key + key_pos if key_pos is not None else key
+        g = self.group
+        bs, nq, c = q.shape
+        if self.training and g > 1 and nq % g == 0:
+            per = nq // g
+            out = self.attn(q.reshape(bs * g, per, c),
+                            k.reshape(bs * g, per, c),
+                            value.reshape(bs * g, per, c))
+            out = out.reshape(bs, nq, c)
+        else:
+            out = self.attn(q, k, value)
+        return identity + self.proj_drop(out)

@@ -54,24 +54,39 @@ class TorchLinear(nn.Module):
 
 
 class Conv2d(nn.Module):
-    """flax ``nn.Conv`` on NCHW tensors: weight OIHW, explicit padding."""
+    """flax ``nn.Conv`` on NCHW tensors: weight OIHW, explicit padding;
+    ``groups`` is flax's ``feature_group_count`` (weight [O, I/groups, kh,
+    kw])."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
                  padding: int = 0, dilation: int = 1, use_bias: bool = True,
-                 dtype=None, device=None):
+                 dtype=None, device=None, groups: int = 1):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel, kernel,
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch // groups,
+                                               kernel, kernel,
                                                device=device))
         self.bias = (nn.Parameter(torch.empty(out_ch, device=device))
                      if use_bias else None)
         self.stride, self.padding, self.dilation = stride, padding, dilation
+        self.groups = groups
         self.dtype = dtype
 
     def forward(self, x):
         dt = compute_dtype(x, self.weight, self.dtype)
         bias = None if self.bias is None else self.bias.to(dt)
         return F.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride,
-                        self.padding, self.dilation)
+                        self.padding, self.dilation, self.groups)
+
+
+def same_padding(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
+    """Pad an NCHW map as flax's ``padding='SAME'`` pads it for a conv of
+    ``kernel`` and ``stride``: the total that keeps ceil(size / stride)
+    outputs, its odd unit at the bottom and right."""
+    pads = []
+    for size in (x.shape[3], x.shape[2]):
+        total = max((-(-size // stride) - 1) * stride + kernel - size, 0)
+        pads += [total // 2, total - total // 2]
+    return F.pad(x, pads)
 
 
 class LayerNorm(nn.Module):
@@ -85,6 +100,22 @@ class LayerNorm(nn.Module):
     def forward(self, x):
         return F.layer_norm(x.float(), self.weight.shape, self.weight,
                             self.bias, 1e-6)
+
+
+class GroupNorm(nn.GroupNorm):
+    """flax ``nn.GroupNorm`` on NCHW maps, computed and returned in f32 as
+    flax's is for a bf16 input with f32 parameters; a group of one value
+    (one channel of a 1x1 map) normalises to 0, as in flax, where
+    ``F.group_norm`` refuses it."""
+
+    def forward(self, x):
+        n, c = x.shape[:2]
+        g = x.float().reshape(n, self.num_groups, -1)
+        mean = g.mean(-1, keepdim=True)
+        var = ((g - mean) ** 2).mean(-1, keepdim=True)
+        y = ((g - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
+        shape = (1, c) + (1,) * (x.dim() - 2)
+        return y * self.weight.reshape(shape) + self.bias.reshape(shape)
 
 
 # dropout rate of the FFNs and attention outputs (reference config

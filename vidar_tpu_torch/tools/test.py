@@ -4,7 +4,8 @@ card).
 Runs the forecast eval loop: history encode + future rollout + depth
 decode through ``ForecastRunner``, chamfer / ray-error metrics per frame,
 aggregated like the reference (SURVEY §3.3), with challenge submission
-dumps (``--submission``, reference vidar.py:504-519). A ``BEVFormer``
+dumps (``--submission``, reference vidar.py:504-519) and BEV plots of the
+predicted and GT point clouds (``--viz-pcd``). A ``BEVFormer``
 config runs the detection eval instead: the full window, or ``--streaming``
 frame by frame on the cached BEV, through ``DetectionRunner``, then NDS /
 mAP. A ``UniAD`` config streams the tracker over each scene and reports
@@ -14,7 +15,8 @@ mAP. A ``UniAD`` config streams the tracker over each scene and reports
 Usage:
   python -m vidar_tpu_torch.tools.test CONFIG [CHECKPOINT_DIR | PTH]
       [--cfg-options k.ey=value ...] [--max-samples N] [--out FILE]
-      [--submission] [--streaming] [--dump-viz PKL] [--device cpu]
+      [--submission] [--viz-pcd [--viz-path PREFIX]] [--streaming]
+      [--dump-viz PKL] [--device cpu]
       [--coordinator HOST:PORT --num-processes N --process-id R]
 
 It runs on the card (``--device cuda``, the default) unless the caller asks
@@ -54,6 +56,7 @@ from ..models import BEVFormer
 from ..parallel import (add_distributed_args, is_main, local_device,
                         maybe_initialize_distributed, process_gather_objects,
                         rank, shutdown, world_size)
+from .visualize import viz_forecast
 
 
 def parse_args(argv: Optional[Sequence[str]] = None):
@@ -69,9 +72,11 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p.add_argument('--submission', action='store_true')
     p.add_argument('--submission-path', default='submission/model')
     p.add_argument('--viz-pcd', action='store_true',
-                   help='not ported: raises NotImplementedError')
-    p.add_argument('--viz-path', default=None,
-                   help='not ported: raises NotImplementedError')
+                   help='forecast eval: write BEV plots of the predicted vs '
+                        'GT point clouds of each sample and future frame')
+    p.add_argument('--viz-path', default='dbg/pred_pcd',
+                   help='the plots\' path prefix: '
+                        '<viz-path>_sample<i>_<frame>.png')
     p.add_argument('--dump-viz', default=None, metavar='PKL',
                    help='detection eval: dump per-sample images/lidar2img/'
                         'pred/gt for tools.visualize detections')
@@ -82,12 +87,7 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p.add_argument('--device', default='cuda',
                    help='torch device (default cuda; cpu only on request)')
     add_distributed_args(p)
-    args = p.parse_args(argv)
-    if args.viz_pcd or args.viz_path is not None:
-        raise NotImplementedError(
-            '--viz-pcd / --viz-path (point-cloud dumps of the forecast) are '
-            'not ported; --dump-viz dumps the detection eval')
-    return args
+    return p.parse_args(argv)
 
 
 def save_submission(pred_dist, frame_idx, sample_idx, out_dir):
@@ -281,10 +281,12 @@ def uniad_eval(args, cfg, model, dataset, device):
 
 def forecast_eval(model, dataset, indices: Sequence[int], num_future: int,
                   pc_range, device, *,
-                  submission_path: Optional[str] = None):
+                  submission_path: Optional[str] = None,
+                  viz_path: Optional[str] = None):
     """The samples of ``indices`` through ``ForecastRunner`` -> their
     per-frame metric dicts (``forecast_metrics``), each written as a
-    submission where ``submission_path`` is given."""
+    submission where ``submission_path`` is given and plotted
+    (``tools.visualize.viz_forecast``) where ``viz_path`` is."""
     runner, results = None, []
     n = len(indices)
     for j, (i, batch) in enumerate(zip(indices, _samples(dataset, indices))):
@@ -298,6 +300,8 @@ def forecast_eval(model, dataset, indices: Sequence[int], num_future: int,
             save_submission(decode['pred_dist'][0].cpu().numpy(),
                             decode['frame_idx'][0].cpu().numpy(),
                             f'sample{i}', submission_path)
+        if viz_path:
+            viz_forecast(decode, pc_range, viz_path, f'sample{i}')
         if is_main() and ((j + 1) % 10 == 0 or j + 1 == n):
             print(f'[{j + 1}/{n}]', flush=True)
     return results
@@ -387,7 +391,8 @@ def _evaluate(args):
     results = forecast_eval(
         model, dataset, contiguous_shard(n, rank(), world_size()),
         num_future, cfg['model']['pc_range'], device,
-        submission_path=args.submission_path if args.submission else None)
+        submission_path=args.submission_path if args.submission else None,
+        viz_path=args.viz_path if args.viz_pcd else None)
     results = [m for part in process_gather_objects(results) for m in part]
     if not is_main():
         return None

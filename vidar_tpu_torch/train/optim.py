@@ -1,5 +1,6 @@
 """Optimizer and learning-rate schedule of the reference recipe (port of
-vidar_tpu/train/optim.py:22-84).
+vidar_tpu/train/optim.py:22-147), and the layer-wise decay optimizer of
+InternImage-style backbones.
 
 Reference recipe (vidar_1_8_nusc_3future.py:379-396): AdamW, lr 2e-4,
 weight decay 0.01, ``img_backbone`` lr x 0.1, gradient clipping to a global
@@ -25,6 +26,7 @@ still decay (vidar_tpu/train/optim.py:57-66 labels them ``backbone``).
 from __future__ import annotations
 
 import math
+import re
 from typing import Callable
 
 import torch
@@ -130,4 +132,59 @@ def make_optimizer(model: torch.nn.Module, *, base_lr: float = 2e-4,
         # its gradients count in the clipped norm, as in optax
         groups.append(dict(params=frozen, lr_mult=0.0))
     return AdamW(groups, sched, weight_decay=weight_decay,
+                 grad_clip_norm=grad_clip_norm)
+
+
+def layer_decay_lr_mult(path: str, *, depths, decay_rate: float) -> float:
+    """InternImage/Swin layer-wise lr decay (vidar_tpu/train/optim.py:
+    87-110, reference custom_layer_decay_optimizer_constructor.py:18-105):
+    the stem and patch embedding get layer 0, block j of stage i layer
+    1 + sum(depths[:i]) + j, anything else (the head) the last layer; the
+    multiplier is decay_rate ** (num_layers - layer_id - 1). ``path`` is a
+    parameter's name, dotted or slashed."""
+    path = path.replace('.', '/')
+    num_layers = sum(depths) + 2
+    layer_id = num_layers - 1
+    if 'patch_embed' in path or 'stem' in path:
+        layer_id = 0
+    elif 'levels_' in path or '/levels/' in path:
+        m = re.search(r'levels[_/](\d+).*?blocks[_/](\d+)', path)
+        if m:
+            stage, blk = int(m.group(1)), int(m.group(2))
+            layer_id = 1 + sum(depths[:stage]) + blk
+        else:
+            m = re.search(r'levels[_/](\d+)', path)
+            if m:
+                layer_id = sum(depths[:int(m.group(1)) + 1])
+    return decay_rate ** (num_layers - layer_id - 1)
+
+
+def make_layer_decay_optimizer(model: torch.nn.Module, *,
+                               base_lr: float = 2e-4,
+                               weight_decay: float = 0.05,
+                               depths=(4, 4, 18, 4),
+                               decay_rate: float = 0.94,
+                               grad_clip_norm: float = 35.0,
+                               total_steps: int = 100_000,
+                               warmup_iters: int = 500,
+                               device='cuda') -> AdamW:
+    """AdamW with per-depth lr decay for InternImage-style backbones
+    (vidar_tpu/train/optim.py:113-147): one group per multiplier,
+    ``layer_decay_lr_mult`` of the name for a parameter under
+    ``img_backbone``, 1.0 for any other; the global-norm clip before the
+    update; no frozen group. The parameters must lie on ``device`` (the
+    card unless the caller asks for the CPU)."""
+    device = resolve_device(device)
+    groups = {}
+    for name, p in model.named_parameters():
+        if p.device.type != device.type:
+            raise ValueError(f'make_layer_decay_optimizer: {name} is on '
+                             f'{p.device}, not {device}')
+        mult = (round(layer_decay_lr_mult(name, depths=depths,
+                                          decay_rate=decay_rate), 12)
+                if 'img_backbone' in name else 1.0)
+        groups.setdefault(mult, []).append(p)
+    sched = cosine_annealing_schedule(base_lr, total_steps, warmup_iters)
+    return AdamW([dict(params=ps, lr_mult=m) for m, ps in groups.items()],
+                 sched, weight_decay=weight_decay,
                  grad_clip_norm=grad_clip_norm)

@@ -17,7 +17,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..core.bbox import focal_loss_cost, hungarian_assign, sigmoid_focal_loss
+from ..core.bbox import (focal_loss_cost, hungarian_assign,
+                         sigmoid_focal_loss, stable_topk)
 from ..models.attention import PredictionMSDeformableAttention
 from ..models.layers import (DROPOUT, FFN, Dense, LayerNorm,
                              MultiHeadDotProductAttention, TorchLinear)
@@ -27,12 +28,6 @@ from ..models.position_embedding import sine_positional_encoding
 def inverse_sigmoid(x, eps: float = 1e-5):
     x = x.clamp(eps, 1.0 - eps)
     return torch.log(x / (1.0 - x))
-
-
-def stable_topk(x: torch.Tensor, k: int) -> torch.Tensor:
-    """Indices of the k largest along the last dim, equal values in index
-    order (``jax.lax.top_k``'s tie rule)."""
-    return torch.sort(x, dim=-1, descending=True, stable=True)[1][..., :k]
 
 
 class SegEncoderLayer(nn.Module):
