@@ -152,20 +152,35 @@ it drives; a kernel of the path that never launched fails the run:
    layers, the planning BEV adapter, attention and collision
    optimisation, and the rest, in ms as one JSON line), then the clip
    train step (``UniADTrainStep``, 40 agents with persistent ids) at the
-   config's 6 frames, one fewer after each out-of-memory (each printed),
-   its warm-up and a timed step (s/it, peak memory, the frames used); b:
-   on phase 9's JPEG fixture with persistent instances
-   (``_uniad_fixture``): the train CLI on ``vidar_e2e.py`` for 2 steps,
-   its UniAD eval of 4 samples of one scene (the six metrics
-   ``UNIAD_KEYS``, each finite, printed), ``base_track_map.py`` for 1 step
-   (K1, K5 and K9; no latent rendering), the frame cut of a as the only
-   depth cut (printed); each run's wall time, peak memory and launches.
+   config's 6 frames (no cut: a clip that does not fit fails the phase):
+   its warm-up, a step at 2 frames (its peak beside the 73.2 GiB of the
+   same step with nothing recomputed)
+   and a timed 6-frame step (s/it, peak memory), each counted step's
+   launches by case held to the counts the code gives
+   (``_uniad_clip_launches``: the backbone camera by camera and every
+   frame's BEV encoder recomputed in the backward); b: on phase 9's JPEG
+   fixture with persistent instances (``_uniad_fixture``): the train CLI
+   on ``vidar_e2e.py`` for 2 steps of the config's clip (its launches
+   held likewise), its UniAD eval of 4 samples of one scene (the six
+   metrics ``UNIAD_KEYS``, each finite, printed), ``base_track_map.py``
+   for 1 step (K1, K5 and K9; no latent rendering), no depth cut; each
+   run's wall time, peak memory and launches; c: UniAD across processes
+   (``_phase11c``): two Gloo ranks of ``vidar_e2e.py`` on the one card,
+   each with a clip of its own (40 and 24 agents, 8 and 3 map elements),
+   dropout off, at the config's clip or, where a rank runs out of device
+   memory, one frame fewer each time (the cut printed), per rank s/it,
+   the gradient all-reduce's seconds and bytes and peak memory, the
+   ranks' parameters bit-identical after each step (a mismatch fails);
+   the UniAD train and test CLIs on
+   NCCL at world size 1; the train CLI at two NCCL ranks on two cards
+   where the machine shows two (the line says whether it ran).
    The eval, the step and the e2e CLI runs keep each kernel's first input
    of each case and hold it against its plain version (phase 9's check):
    K1 and K5 at the motion head's 64,872 folded queries, the panoptic
    encoder's 40,000 and decoder's 300, the track decoder's 900, TSA and
-   SCA; K9 at stages 3-4; K3/K4 and K6/K7, K8. ``uniad_*_launches`` and
-   ``cli_uniad_*_launches`` in the kernel line;
+   SCA; K9 at stages 3-4; K3/K4 and K6/K7, K8. ``uniad_*_launches``,
+   ``cli_uniad_*_launches`` and ``uniad_dp_rank*_launches`` in the kernel
+   line;
 12. the data path from raw tables, the rest of the fine-tune, the
    analysis tools and the video step (``_phase12``). a: nuScenes v1.0
    tables (``_write_nuscenes_tables``: 2 trainval scenes and 1 test scene
@@ -178,7 +193,7 @@ it drives; a kernel of the path that never launched fails the run:
    nearest CAN-bus message, the GT boxes in the lidar frame), the
    converter's host time a sample; c: ``vidar_e2e.py`` through the train
    CLI for 2 steps on the converted train pkl with its map gt and k-means
-   anchors (2-frame clips, phase 11's cut), ``map.loss`` finite and above
+   anchors (the config's 6-frame clips), ``map.loss`` finite and above
    0, then its UniAD eval on the val pkl; d: the fullset pre-training
    config for 2 steps on the merged traintest pkl; e: ``BEVFormerFP16`` at
    phase 6's full width and batch: the window eval, 3 streamed frames and a
@@ -228,13 +243,17 @@ it drives; a kernel of the path that never launched fails the run:
 
 The line before the last is a JSON object of per-kernel results; the last
 is ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --clip-memory [FRAMES ...]`` runs none of the
+above: UniAD's clip train step (``clip_memory``) by clip length (default
+1 2) and by what its backward recomputes, for the memory table in
+PERF.md.
 """
 
 from __future__ import annotations
 
 import cProfile
 import dataclasses
-import gc
 import json
 import math
 import os
@@ -1566,9 +1585,10 @@ UNIAD_TRACK_MAP_CONFIG = (ROOT / 'configs' / 'uniad' / 'stage1_track_map' /
                           'base_track_map.py')
 UNIAD_KEYS = ('amota', 'amotp', 'NDS', 'minADE', 'planning.L2',
               'planning.obj_box_col')
-# the clip step's frames: the config's window (queue_length + 1) first,
-# then one fewer after each out-of-memory, down to this
-UNIAD_MIN_FRAMES = 1
+# the 2-frame clip step's peak on the H100 with nothing recomputed (neither
+# the backbone nor the encoder checkpointed; PERF.md), printed beside the
+# 2-frame step's peak
+UNIAD_2FRAME_NO_RECOMPUTE_GIB = 73.2
 # the library path's synthetic cameras: nuScenes' 6 at the padded size
 UNIAD_CAMS, UNIAD_IMAGE = 6, (928, 1600)
 
@@ -1617,6 +1637,61 @@ def _uniad_keepers(cfg, run, train):
             latent_render.AGGREGATE_BACKWARD.name: _Keeper(
                 lambda a: f'{run}:encoder')})
     return keepers
+
+
+def _uniad_clip_launches(eval_by_case, eval_frames, frames, cams, steps=1):
+    """The launches by case that ``steps`` clip train steps of ``frames``
+    frames must make, from an eval run's (``eval_by_case``: {kernel:
+    {case: launches}} of ``eval_frames`` streamed frames, one batched
+    backbone pass of ``cams`` images a frame): per frame, the backbone
+    camera by camera, each camera recomputed in the backward (K9 at
+    ``stage*,b1``: 2 x cams x the eval's per frame); every frame's BEV
+    encoder (K1's TSA and SCA, K3/K4) recomputed; the track decoder once a
+    frame; the heads once; a backward kernel (K5, K6/K7, K8) once for each
+    forward call -> {kernel: {case suffix: launches}}."""
+    from vidar_tpu_torch.ops import dcn, latent_render, msda
+
+    def per_frame(kernel):
+        out = {}
+        for case, n in eval_by_case.get(kernel.name, {}).items():
+            if n % eval_frames:
+                raise RuntimeError(f'{kernel.name} {case}: {n} launches in '
+                                   f'{eval_frames} eval frames')
+            out[case.split(':', 1)[1]] = n // eval_frames
+        return out
+
+    recomputed = 2 * frames
+    msda_cases = per_frame(msda.KERNEL)
+    k1 = {case: n * {'tsa': recomputed, 'sca': recomputed,
+                     'track_decoder': frames}.get(case, 1)
+          for case, n in msda_cases.items()}
+    k5 = {case: n * (frames if case in ('tsa', 'sca', 'track_decoder')
+                     else 1) for case, n in msda_cases.items()}
+    k9 = {case.replace(f',b{cams}', ',b1'): 2 * cams * frames * n
+          for case, n in per_frame(dcn.SAMPLE).items()}
+    render = {case: n * recomputed
+              for case, n in per_frame(latent_render.FIRST_HIT).items()}
+    render_bwd = {case: n * frames
+                  for case, n in per_frame(latent_render.FIRST_HIT).items()}
+    want = {msda.KERNEL.name: k1, msda.BACKWARD.name: k5,
+            dcn.SAMPLE.name: k9, latent_render.FIRST_HIT.name: render,
+            latent_render.AGGREGATE.name: render,
+            latent_render.FIRST_HIT_BACKWARD.name: render_bwd,
+            latent_render.AGGREGATE_BACKWARD.name: render_bwd}
+    return {k: {c: n * steps for c, n in v.items()} for k, v in want.items()}
+
+
+def _hold_clip_launches(label, keepers, want):
+    """Each kernel's launches by case (``keepers``' counts, their run's
+    prefix dropped) against ``want`` (``_uniad_clip_launches``); raises
+    where they differ."""
+    got = {k: {c.split(':', 1)[1]: n for c, n in keepers[k].counts.items()}
+           for k in want}
+    if got != want:
+        raise RuntimeError(f'{label}: launches by case {json.dumps(got)}, '
+                           f'the code gives {json.dumps(want)}')
+    print(f'{label}: launches by case as the code gives them '
+          f'{json.dumps(want)}', flush=True)
 
 
 def _uniad_targets(rng, frames, dev, model, num_gt=40, max_gt=128,
@@ -1674,6 +1749,119 @@ def _uniad_targets(rng, frames, dev, model, num_gt=40, max_gt=128,
                            for k, v in arrays.items()})
 
 
+def _straight(fn, *args, use_reentrant=None, **kwargs):
+    """``torch.utils.checkpoint.checkpoint`` without the recomputation."""
+    return fn(*args, **kwargs)
+
+
+def _recompute_layout(name, frames):
+    """Replace the ``checkpoint`` names of ``models/vidar.py`` (the
+    backbone, camera by camera) and ``uniad/uniad.py`` (a frame's BEV
+    encoder, called once a frame) so that a step of ``frames`` frames
+    recomputes what ``name`` says: ``none`` (the cameras still one at a
+    time), ``backbone``, ``keep_last`` (and every frame's encoder but the
+    last) or ``shipped`` (every frame's). -> a function that puts the
+    names back."""
+    from torch.utils.checkpoint import checkpoint
+    from vidar_tpu_torch.models import vidar
+    from vidar_tpu_torch.uniad import uniad
+    calls = []
+
+    def all_but_last(fn, *args, **kwargs):
+        calls.append(fn)
+        last = len(calls) % frames == 0
+        return (_straight if last else checkpoint)(fn, *args, **kwargs)
+
+    vidar.checkpoint = _straight if name == 'none' else checkpoint
+    uniad.checkpoint = {'none': _straight, 'backbone': _straight,
+                        'keep_last': all_but_last}.get(name, checkpoint)
+
+    def restore():
+        vidar.checkpoint = uniad.checkpoint = checkpoint
+    return restore
+
+
+def clip_memory(frame_counts) -> int:
+    """UniAD's clip train step (``vidar_e2e.py`` in f32, ``init_weights_``
+    from seed 0, TF32 off, as phase 11a builds it; ``make_synthetic_batch``
+    with 6 cameras at 928x1600 and ``_uniad_targets``' 40 agents) at each
+    of ``frame_counts`` frames under each ``_recompute_layout``: two steps,
+    the peak reset before each; prints both peaks, the second step's
+    seconds, the forward's peak and what the forward leaves allocated for
+    the backward, or "out of memory"; the card first and a JSON line of
+    every number last."""
+    from vidar_tpu_torch.core.builder import build_model
+    from vidar_tpu_torch.core.config import load_config
+    from vidar_tpu_torch.data import make_synthetic_batch
+    from vidar_tpu_torch.train import UniADTrainStep, make_optimizer
+
+    card = _nvidia_smi()
+    print(card, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device('cuda:0')
+    mcfg = load_config(str(UNIAD_E2E_CONFIG))['model']
+    model = build_model(mcfg, device=dev)
+    model.init_weights_(torch.Generator(device=dev).manual_seed(0))
+    model.train()
+    step = UniADTrainStep(model, make_optimizer(model, device=dev),
+                          task_loss_weight=mcfg['task_loss_weight'],
+                          device=dev)
+    command = torch.tensor([2], dtype=torch.int32, device=dev)
+    forward = {}
+    backward = step.backward
+
+    def split_backward(total):
+        forward['peak'] = torch.cuda.max_memory_allocated() / 2**30
+        forward['left'] = torch.cuda.memory_allocated() / 2**30
+        backward(total)
+
+    step.backward = split_backward
+    ih, iw = UNIAD_IMAGE
+    rows = []
+    for frames in frame_counts:
+        clip = make_synthetic_batch(np.random.default_rng(1), bs=1,
+                                    queue_length=frames - 1,
+                                    future_length=1, num_cams=UNIAD_CAMS,
+                                    img_h=ih, img_w=iw, max_points=64,
+                                    device=dev)
+        targets = _uniad_targets(np.random.default_rng(2), frames, dev,
+                                 model)
+        for name in ('none', 'backbone', 'keep_last', 'shipped'):
+            row = dict(layout=name, frames=frames)
+            restore = _recompute_layout(name, frames)
+            try:
+                for k in (1, 2):
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats()
+                    t0 = time.perf_counter()
+                    step((clip, targets, command))
+                    torch.cuda.synchronize()
+                    row[f'step{k}_s'] = time.perf_counter() - t0
+                    row[f'step{k}_peak_gib'] = (
+                        torch.cuda.max_memory_allocated() / 2**30)
+                row.update(forward_peak_gib=forward['peak'],
+                           forward_left_gib=forward['left'])
+            except torch.cuda.OutOfMemoryError:
+                row['out_of_memory'] = True
+                model.zero_grad(set_to_none=True)
+            finally:
+                restore()
+            torch.cuda.empty_cache()
+            rows.append(row)
+            print(f'uniad clip step, {frames} frames, recomputed: {name}: ' + (
+                'out of memory' if row.get('out_of_memory') else
+                f'peak {row["step1_peak_gib"]:.2f} / '
+                f'{row["step2_peak_gib"]:.2f} GiB (step 1 / 2), step 2 '
+                f'{row["step2_s"]:.3f} s, its forward peak '
+                f'{row["forward_peak_gib"]:.2f} GiB, left for the backward '
+                f'{row["forward_left_gib"]:.2f} GiB') + f' on {card}',
+                flush=True)
+        del clip, targets
+    print(json.dumps(dict(card=card, clip_memory=rows)))
+    return 0
+
+
 def _uniad_fixture(pkl, root):
     """Phase 9's fixture as UniAD reads it: its first sample's GT boxes
     persist through the scene as the same instances (``gt_instance_tokens``),
@@ -1703,13 +1891,15 @@ def _phase11(counted, card, check, tmp, fixture_pkl, dev='cuda:0'):
     in stages 3-4, latent rendering at layer 2, 12 steps x 6 modes), f32,
     ``init_weights_`` from seed 0. a: the library: 3 streamed eval frames
     on a synthetic batch of 6 x 928x1600, a fourth timed stage by stage,
-    then the clip train step at the
-    config's frame count or the largest that fits; b: the train CLI on
-    ``vidar_e2e.py`` (2 steps) and its UniAD eval (4 samples of one
-    scene), ``base_track_map.py`` (1 step), on phase 9's JPEG fixture made
-    UniAD's (``_uniad_fixture``). ``check`` holds every kernel of the
-    library path and of the e2e train and eval runs against its plain
-    version on their kept inputs. -> {path: {kernel: launches}}."""
+    then the clip train step at 2 frames and at the config's 6, each
+    with its launches by case held to the counts the code gives
+    (``_uniad_clip_launches``), the 6-frame step timed again; b: the train
+    CLI on ``vidar_e2e.py`` (2 steps of the config's clip, its launches
+    held likewise) and its UniAD eval (4 samples of one scene),
+    ``base_track_map.py`` (1 step), on phase 9's JPEG fixture made UniAD's
+    (``_uniad_fixture``). ``check`` holds every kernel of the library path
+    and of the e2e train and eval runs against its plain version on their
+    kept inputs. -> {path: {kernel: launches}}."""
     from vidar_tpu_torch.core.builder import build_model
     from vidar_tpu_torch.core.config import apply_overrides, load_config
     from vidar_tpu_torch.data import make_synthetic_batch
@@ -1779,6 +1969,7 @@ def _phase11(counted, card, check, tmp, fixture_pkl, dev='cuda:0'):
     (outs, times), launches = _run_counted(counted, keepers, stream)
     peak = torch.cuda.max_memory_allocated()
     need('uniad_eval', forward, launches)
+    eval_by_case = {k: dict(kp.counts) for k, kp in keepers.items()}
     out = outs[-1]
     for name, t in (('det', out['det']['all_bbox_preds']),
                     ('motion', out['motion']['all_traj_preds']),
@@ -1838,14 +2029,16 @@ def _phase11(counted, card, check, tmp, fixture_pkl, dev='cuda:0'):
           f'ms): {json.dumps({k: round(v, 3) for k, v in by_stage.items()})}'
           f'; whole frame {frame_ms:.3f} ms on {card}', flush=True)
 
-    # -- 11a: the clip train step, at the config's frames or fewer
+    # -- 11a: the clip train step at the config's frames, and at 2
     torch.backends.cudnn.allow_tf32 = False      # check turned it back on
     model.train()
     step = UniADTrainStep(model, make_optimizer(model, device=dev),
                           task_loss_weight=mcfg['task_loss_weight'],
                           device=dev)
-    frames_used = None
-    for n_frames in range(frames_cfg, UNIAD_MIN_FRAMES - 1, -1):
+
+    def counted_step(n_frames):
+        """A clip step of n_frames, counted, its launches by case held ->
+        (clip, targets, metrics, launches, keepers, s, peak bytes)."""
         clip = make_synthetic_batch(np.random.default_rng(1), bs=1,
                                     queue_length=n_frames - 1,
                                     future_length=1, num_cams=UNIAD_CAMS,
@@ -1856,32 +2049,32 @@ def _phase11(counted, card, check, tmp, fixture_pkl, dev='cuda:0'):
         keepers = _uniad_keepers(mcfg, 'uniad_train', train=True)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        try:
-            t0 = time.perf_counter()
-            metrics, launches = _run_counted(
-                counted, keepers, lambda: step((clip, targets, command)))
-        except torch.cuda.OutOfMemoryError as e:
-            print(f'uniad clip step at {n_frames} frames: out of device '
-                  f'memory ({str(e).splitlines()[0][:160]})', flush=True)
-            del clip, targets, keepers
-            model.zero_grad(set_to_none=True)
-            step.optimizer.zero_grad(set_to_none=True)
-            continue
-        frames_used = n_frames
-        break
-    if frames_used is None:
-        raise RuntimeError('phase 11a: the clip step fits at no frame count')
-    warm_s = time.perf_counter() - t0
-    warm_peak = torch.cuda.max_memory_allocated()
-    need('uniad_train', forward + backward, launches)
-    if not all(np.isfinite(v) for v in metrics.values()):
-        raise RuntimeError(f'phase 11a: non-finite step metrics {metrics}')
-    cut_note = ('' if frames_used == frames_cfg else
-                ', cut: out of memory at more')
-    print(f'uniad clip step 1 (warm-up): {frames_used} frames (the '
-          f'config\'s {frames_cfg}{cut_note}), {warm_s:.3f} s, peak memory '
+        t0 = time.perf_counter()
+        metrics, launches = _run_counted(
+            counted, keepers, lambda: step((clip, targets, command)))
+        took = time.perf_counter() - t0
+        need('uniad_train', forward + backward, launches)
+        if not all(np.isfinite(v) for v in metrics.values()):
+            raise RuntimeError(f'phase 11a: non-finite step metrics '
+                               f'{metrics}')
+        _hold_clip_launches(
+            f'uniad clip step ({n_frames} frames)', keepers,
+            _uniad_clip_launches(eval_by_case, 3, n_frames, UNIAD_CAMS))
+        return (clip, targets, metrics, launches, keepers, took,
+                torch.cuda.max_memory_allocated())
+
+    clip, targets, metrics, launches, keepers, warm_s, warm_peak = (
+        counted_step(frames_cfg))
+    print(f'uniad clip step 1 (warm-up): {frames_cfg} frames (the config\'s '
+          f'queue_length + 1), {warm_s:.3f} s, peak memory '
           f'{warm_peak / 2**30:.2f} GiB; metrics {json.dumps(metrics)}; '
           f'launches {json.dumps(launches)}', flush=True)
+    two = counted_step(2)
+    print(f'uniad clip step at 2 frames: {two[-2]:.3f} s, peak memory '
+          f'{two[-1] / 2**30:.2f} GiB (nothing recomputed: '
+          f'{UNIAD_2FRAME_NO_RECOMPUTE_GIB} GiB) on {card}', flush=True)
+    del two
+    runs['uniad_train'] = launches        # the config's clip's
     check('uniad_train', keepers, launches)
     torch.backends.cudnn.allow_tf32 = False
     del keepers
@@ -1891,12 +2084,12 @@ def _phase11(counted, card, check, tmp, fixture_pkl, dev='cuda:0'):
     metrics = step((clip, targets, command))
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
     if not all(np.isfinite(v) for v in metrics.values()):
         raise RuntimeError(f'phase 11a: non-finite step metrics {metrics}')
     print(f'uniad clip step 2: {step_s:.4f} s/it, peak memory '
-          f'{peak / 2**30:.2f} GiB ({frames_used} frames x {UNIAD_CAMS} x '
-          f'{ih}x{iw}, 40 agents) on {card}', flush=True)
+          f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB '
+          f'({frames_cfg} frames x {UNIAD_CAMS} x {ih}x{iw}, 40 agents) on '
+          f'{card}', flush=True)
     del model, step, clip, targets, batch
     torch.cuda.empty_cache()
 
@@ -1905,11 +2098,6 @@ def _phase11(counted, card, check, tmp, fixture_pkl, dev='cuda:0'):
     pkl = _uniad_fixture(fixture_pkl, tmp)
     data = [f'data.{s}.{k}={v}' for s in ('train', 'test')
             for k, v in (('ann_file', pkl), ('data_root', tmp))]
-    cut = ([] if frames_used == frames_cfg else
-           [f'data.train.queue_length={frames_used - 1}'])
-    if cut:
-        print(f'phase 11b: depth cut {cut} (the train split\'s clip, out '
-              f'of memory at {frames_used + 1} frames in 11a)', flush=True)
 
     def run(name, fn, argv, kernels, keepers=None):
         torch.cuda.empty_cache()
@@ -1928,9 +2116,13 @@ def _phase11(counted, card, check, tmp, fixture_pkl, dev='cuda:0'):
     keepers = _uniad_keepers(mcfg, 'cli_uniad_e2e', train=True)
     out = run('uniad_e2e', train_cli.main,
               [str(UNIAD_E2E_CONFIG), '--work-dir', work, '--max-steps',
-               '2', '--cfg-options', *data, *cut, 'log_interval=1'],
+               '2', '--cfg-options', *data, 'log_interval=1'],
               forward + backward, keepers)
     _train_log('uniad_e2e', out, 2)
+    _hold_clip_launches(
+        f'cli uniad_e2e (2 steps of {frames_cfg} frames)', keepers,
+        _uniad_clip_launches(eval_by_case, 3, frames_cfg, UNIAD_CAMS,
+                             steps=2))
     check('cli_uniad_e2e', keepers, runs['cli_uniad_e2e'])
     keepers = _uniad_keepers(mcfg, 'cli_uniad_eval', train=False)
     metrics = run('uniad_eval', test_cli.main,
@@ -1945,7 +2137,7 @@ def _phase11(counted, card, check, tmp, fixture_pkl, dev='cuda:0'):
     out = run('uniad_track_map', train_cli.main,
               [str(UNIAD_TRACK_MAP_CONFIG), '--work-dir',
                f'{tmp}/uniad_track_map', '--max-steps', '1',
-               '--cfg-options', *data, *cut, 'log_interval=1'],
+               '--cfg-options', *data, 'log_interval=1'],
               [msda.KERNEL, dcn.SAMPLE, msda.BACKWARD])
     _train_log('uniad_track_map', out, 1)
     if runs['cli_uniad_track_map'][latent_render.FIRST_HIT.name]:
@@ -2428,10 +2620,10 @@ def _phase12_data(tmp, jpegs):
 
 def _phase12_uniad(counted, card, paths):
     """12c: ``vidar_e2e.py`` through the train CLI for 2 steps on the
-    converted train pkl with its map gt and k-means anchors (2-frame clips,
-    phase 11's cut; 1 frame where 2 run out of memory), then its UniAD eval
-    on the val pkl. -> ({run: launches}, the trained model's element count,
-    the config's count by ``count_params``)."""
+    converted train pkl with its map gt and k-means anchors (the config's
+    6-frame clips), then its UniAD eval on the val pkl. -> ({run:
+    launches}, the trained model's element count, the config's count by
+    ``count_params``)."""
     from vidar_tpu_torch.core.builder import build_dataset
     from vidar_tpu_torch.core.config import apply_overrides, load_config
     from vidar_tpu_torch.ops import dcn, latent_render, msda
@@ -2458,22 +2650,12 @@ def _phase12_uniad(counted, card, paths):
     backward = [msda.BACKWARD, latent_render.FIRST_HIT_BACKWARD,
                 latent_render.AGGREGATE_BACKWARD]
     work = f'{root}/uniad_e2e'
-    for frames in (2, 1):
-        cut = f'data.train.queue_length={frames - 1}'
-        try:
-            out, launches = _cli_run(
-                counted, card, 'p12_uniad_e2e', train_cli.main,
-                [str(UNIAD_E2E_CONFIG), '--work-dir', work, '--max-steps',
-                 '2', '--cfg-options', *opts, cut, 'log_interval=1'])
-            break
-        except torch.cuda.OutOfMemoryError as e:
-            print(f'phase 12c: the e2e train CLI at {frames}-frame clips '
-                  f'out of device memory ({str(e).splitlines()[0][:160]})',
-                  flush=True)
-        gc.collect()
-        torch.cuda.empty_cache()
-    else:
-        raise RuntimeError('phase 12c: the e2e train CLI fits at no clip')
+    frames = load_config(str(UNIAD_E2E_CONFIG))['data']['train'][
+        'queue_length'] + 1
+    out, launches = _cli_run(
+        counted, card, 'p12_uniad_e2e', train_cli.main,
+        [str(UNIAD_E2E_CONFIG), '--work-dir', work, '--max-steps', '2',
+         '--cfg-options', *opts, 'log_interval=1'])
     runs['p12_uniad_e2e'] = launches
     _need('uniad_e2e', launches, forward + backward,
           (dcn.KERNEL, dcn.SAMPLE16))
@@ -2487,7 +2669,7 @@ def _phase12_uniad(counted, card, paths):
         raise RuntimeError(f'phase 12c: map losses {mp}')
     built = analysis.param_counts(model)[0]
     counted_cfg = analysis.count_params(str(UNIAD_E2E_CONFIG))
-    print(f'phase 12c: {cut} ({frames}-frame clips); map gt: '
+    print(f'phase 12c: the config\'s {frames}-frame clips; map gt: '
           f'{n_map} elements in train sample 0; map.loss {mp} (finite, > 0); '
           f'k-means anchors {tuple(model.anchors.shape)} loaded; s/it '
           f'{[round(1 / m["it/s"], 3) for m in out["log"]]} on {card}',
@@ -3833,6 +4015,241 @@ def _phase10b(card, tmp, data):
                            'without a process group')
 
 
+# phase 11c: a UniAD rank that runs out of device memory exits with this
+# code, and the two ranks run again at one frame fewer
+UNIAD_DP_OOM_EXIT = 75
+
+
+def _phase11c_rank(r, port, path, frames):
+    """Rank r of phase 11c, in a process of its own: joins the Gloo group
+    of two ranks on the one card, builds ``vidar_e2e.py`` (f32, seed 0,
+    dropout off, rank 0's weights broadcast), takes its own ``frames``-frame
+    clip (rank 0: 40 agents and 8 map elements, rank 1: 24 and 3, other
+    images), runs a counted warm-up ``UniADTrainStep`` and a timed one with
+    the gradient all-reduce timed inside, and saves the metrics, launches,
+    times, gradient bytes, peak memory and the parameters' digest after
+    each step to ``path``. Out of device memory it exits at once with
+    ``UNIAD_DP_OOM_EXIT`` (the other rank, waiting in a collective, is
+    ended by ``_join_ranks``)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+    from vidar_tpu_torch.core.builder import build_model
+    from vidar_tpu_torch.core.config import load_config
+    from vidar_tpu_torch.data import make_synthetic_batch
+    from vidar_tpu_torch.ops import dcn, latent_render, msda
+    from vidar_tpu_torch.parallel import (broadcast_parameters_,
+                                          local_device,
+                                          maybe_initialize_distributed,
+                                          shutdown)
+    from vidar_tpu_torch.train import UniADTrainStep, make_optimizer
+    maybe_initialize_distributed(f'127.0.0.1:{port}', 2, r, device='cuda',
+                                 backend='gloo')
+    try:
+        dev = local_device('cuda')
+        mcfg = load_config(str(UNIAD_E2E_CONFIG))['model']
+        model = _no_dropout_(build_model(mcfg, device=dev))
+        model.init_weights_(torch.Generator(device=dev).manual_seed(0))
+        broadcast_parameters_(model)
+        model.train()
+        ih, iw = UNIAD_IMAGE
+        clip = make_synthetic_batch(np.random.default_rng(1 + r), bs=1,
+                                    queue_length=frames - 1, future_length=1,
+                                    num_cams=UNIAD_CAMS, img_h=ih, img_w=iw,
+                                    max_points=64, device=dev)
+        targets = _uniad_targets(np.random.default_rng(2 + r), frames, dev,
+                                 model, num_gt=(40, 24)[r],
+                                 map_gt=(8, 3)[r])
+        command = torch.tensor([2], dtype=torch.int32, device=dev)
+        step = UniADTrainStep(model, make_optimizer(model, device=dev),
+                              task_loss_weight=mcfg['task_loss_weight'],
+                              device=dev)
+        reduce_s = []
+        sum_gradients = step._sum_gradients
+
+        def timed_sum_gradients():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sum_gradients()
+            torch.cuda.synchronize()
+            reduce_s.append(time.perf_counter() - t0)
+
+        step._sum_gradients = timed_sum_gradients
+        kernels = [msda.KERNEL, msda.BACKWARD, dcn.SAMPLE, dcn.KERNEL,
+                   dcn.SAMPLE16, latent_render.FIRST_HIT,
+                   latent_render.AGGREGATE, latent_render.FIRST_HIT_BACKWARD,
+                   latent_render.AGGREGATE_BACKWARD]
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        times, digests, metrics = [], [], []
+        for i in range(2):
+            t0 = time.perf_counter()
+            try:
+                metrics.append(step((clip, targets, command)))
+            except torch.cuda.OutOfMemoryError as e:
+                print(f'phase 11c rank {r}: out of device memory at '
+                      f'{frames} frames ({str(e).splitlines()[0][:120]})',
+                      flush=True)
+                os._exit(UNIAD_DP_OOM_EXIT)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            digests.append(_state_digest(model))
+            if i == 0:
+                launches = {k.name: k.launches for k in kernels}
+        out = dict(times=times, reduce_s=reduce_s, digests=digests,
+                   metrics=metrics, launches=launches,
+                   grad_bytes=sum(p.grad.numel() * p.grad.element_size()
+                                  for p in model.parameters()
+                                  if p.grad is not None),
+                   peak=torch.cuda.max_memory_allocated(),
+                   backend=dist.get_backend(), device=str(dev))
+        torch.save(out, path)
+    finally:
+        shutdown()
+
+
+def _phase11c(card, tmp, fixture_pkl):
+    """UniAD across processes: two Gloo ranks of ``vidar_e2e.py`` on the one
+    card, each with a clip of its own, at the config's clip or, where a
+    rank runs out of device memory, one frame fewer each time (a depth
+    cut, printed), their parameters bit-identical after each step; then
+    the UniAD train (1 step of the config's clip) and test CLIs (2
+    samples) on NCCL at world size 1; then, where the machine shows two
+    cards, the train CLI at two NCCL ranks on them at the config's clip.
+    -> {rank: {kernel: launches}} of the ranks' warm-up steps."""
+    import multiprocessing
+    import torch.distributed as dist
+    from vidar_tpu_torch.core.config import load_config
+    from vidar_tpu_torch.ops import dcn, latent_render, msda
+    from vidar_tpu_torch.tools import test as test_cli
+    from vidar_tpu_torch.tools import train as train_cli
+    frames_cfg = load_config(str(UNIAD_E2E_CONFIG))['data']['train'][
+        'queue_length'] + 1
+    print(f'phase 11c: two Gloo ranks of UniAD '
+          f'({UNIAD_E2E_CONFIG.relative_to(ROOT)}, f32, one clip each, '
+          f'dropout off) on cuda:0', flush=True)
+    torch.cuda.empty_cache()
+    paths = [f'{tmp}/uniad_dp_rank{r}.pt' for r in range(2)]
+    ctx = multiprocessing.get_context('spawn')
+    for frames in range(frames_cfg, 0, -1):
+        t0 = time.perf_counter()
+        port = _free_port()
+        procs = [ctx.Process(target=_phase11c_rank,
+                             args=(r, port, paths[r], frames))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        try:
+            _join_ranks(procs)
+            break
+        except RuntimeError:
+            if UNIAD_DP_OOM_EXIT not in [p.exitcode for p in procs]:
+                raise
+        print(f'phase 11c: two ranks out of device memory at {frames} '
+              f'frames', flush=True)
+    else:
+        raise RuntimeError('phase 11c: two UniAD ranks fit on the card at '
+                           'no clip length')
+    cut = 'none, ' if frames == frames_cfg else ''
+    print(f'phase 11c: depth cut: {cut}{frames} of the config\'s '
+          f'{frames_cfg} frames a rank; the two ranks ran in '
+          f'{time.perf_counter() - t0:.1f} s (spawn, build load, setup, 2 '
+          f'steps)', flush=True)
+    ranks = [torch.load(p, weights_only=False) for p in paths]
+    a, b = ranks
+    if a['digests'] != b['digests'] or a['metrics'] != b['metrics']:
+        raise RuntimeError('phase 11c: the two ranks\' parameters or metrics '
+                           'differ')
+    print(f'phase 11c: the ranks\' parameters bit-identical after each of '
+          f'{len(a["digests"])} steps; the global batch\'s metrics '
+          f'{json.dumps(a["metrics"][0])}', flush=True)
+    need = [msda.KERNEL, msda.BACKWARD, dcn.SAMPLE, latent_render.FIRST_HIT,
+            latent_render.AGGREGATE, latent_render.FIRST_HIT_BACKWARD,
+            latent_render.AGGREGATE_BACKWARD]
+    for r, res in enumerate(ranks):
+        print(f'phase 11c rank {r} ({res["backend"]} on {res["device"]}): '
+              f'steps {" ".join(f"{t:.4f}" for t in res["times"])} s/it (the '
+              f'first with warm-up; two ranks share the card: not a speed), '
+              f'gradient all-reduce {" ".join(f"{t:.4f}" for t in res["reduce_s"])} '
+              f's a step for {res["grad_bytes"] / 2**20:.1f} MiB of f32 '
+              f'gradients, peak memory {res["peak"] / 2**30:.2f} GiB; '
+              f'warm-up launches {json.dumps(res["launches"])} on {card}',
+              flush=True)
+        if res['backend'] != 'gloo':
+            raise RuntimeError(f'phase 11c rank {r}: backend '
+                               f'{res["backend"]}')
+        if not all(np.isfinite(v) for m in res['metrics']
+                   for v in m.values()):
+            raise RuntimeError(f'phase 11c rank {r}: non-finite metrics')
+        never = [k.name for k in need if res['launches'][k.name] <= 0]
+        if never or res['launches'][dcn.KERNEL.name] or \
+                res['launches'][dcn.SAMPLE16.name]:
+            raise RuntimeError(f'phase 11c rank {r}: launches '
+                               f'{res["launches"]}')
+    launches = {r: res['launches'] for r, res in enumerate(ranks)}
+    del ranks, a, b
+    torch.cuda.empty_cache()
+
+    # the CLIs on NCCL at world size 1
+    pkl = _uniad_fixture(fixture_pkl, tmp)
+    data = [f'data.{s}.{k}={v}' for s in ('train', 'test')
+            for k, v in (('ann_file', pkl), ('data_root', tmp))]
+    backends = {}
+
+    def probe(fn, name):
+        def wrapped(args):
+            backends[name] = (dist.get_backend() if dist.is_initialized()
+                              else None)
+            return fn(args)
+        return wrapped
+
+    train, evaluate = train_cli._train, test_cli._evaluate
+    train_cli._train = probe(train, 'train')
+    test_cli._evaluate = probe(evaluate, 'test')
+    work = f'{tmp}/uniad_nccl'
+    flags = ['--num-processes', '1', '--process-id', '0', '--coordinator']
+    try:
+        t0 = time.perf_counter()
+        out = train_cli.main([str(UNIAD_E2E_CONFIG), '--work-dir', work,
+                              '--max-steps', '1', *flags,
+                              f'127.0.0.1:{_free_port()}', '--cfg-options',
+                              *data, 'log_interval=1'])
+        _train_log('uniad_nccl', out, 1)
+        del out
+        torch.cuda.empty_cache()
+        metrics = test_cli.main([str(UNIAD_E2E_CONFIG), f'{work}/latest',
+                                 '--max-samples', '2', *flags,
+                                 f'127.0.0.1:{_free_port()}',
+                                 '--cfg-options', *data])
+    finally:
+        train_cli._train, test_cli._evaluate = train, evaluate
+    _finite_metrics('uniad_nccl_eval', metrics, UNIAD_KEYS)
+    if backends != {'train': 'nccl', 'test': 'nccl'}:
+        raise RuntimeError(f'phase 11c: backends {backends}')
+    print(f'phase 11c: the UniAD train CLI (1 step of {frames_cfg} frames) '
+          f'and test CLI (2 samples) on NCCL at world size 1 in '
+          f'{time.perf_counter() - t0:.1f} s; ' + ', '.join(
+              f'{k} {float(metrics[k]):.4f}' for k in UNIAD_KEYS), flush=True)
+    shutil.rmtree(work)
+    torch.cuda.empty_cache()
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f'phase 11c (two UniAD ranks on two cards over NCCL): not run, '
+              f'the machine shows {n} card', flush=True)
+    else:
+        t0 = time.perf_counter()
+        argv = [str(UNIAD_E2E_CONFIG), '--work-dir', f'{tmp}/uniad_two_cards',
+                '--max-steps', '1', '--cfg-options', *data, 'log_interval=1']
+        port = _free_port()
+        _spawn_ranks(_phase10c_rank, [(r, port, argv) for r in range(2)])
+        print(f'phase 11c: the UniAD train CLI at two ranks on cuda:0 and '
+              f'cuda:1 over NCCL, 1 step of {frames_cfg} frames in '
+              f'{time.perf_counter() - t0:.1f} s on {card}', flush=True)
+    return launches
+
+
 def _phase10c_rank(r, port, argv):
     from vidar_tpu_torch.tools import train as train_cli
     out = train_cli.main(argv + ['--coordinator', f'127.0.0.1:{port}',
@@ -4771,7 +5188,10 @@ def main() -> int:
         t0 = time.perf_counter()
         uniad = _phase11(counted, card, check_cli, fixture_dir,
                          data[0].split('=', 1)[1])
-        print(f'phase 11: {time.perf_counter() - t0:.1f} s', flush=True)
+        print(f'phase 11a-b: {time.perf_counter() - t0:.1f} s', flush=True)
+        t0 = time.perf_counter()
+        uniad_dp = _phase11c(card, fixture_dir, data[0].split('=', 1)[1])
+        print(f'phase 11c: {time.perf_counter() - t0:.1f} s', flush=True)
 
         # -- phase 12: the data path from raw tables, the rest of the
         # fine-tune, the analysis tools and the video step
@@ -4794,6 +5214,8 @@ def main() -> int:
         for rank, parts in dp.items():
             r[f'dp_rank{rank}_launches'] = parts['pretrain'][base]
             r[f'dp_finetune_rank{rank}_launches'] = parts['finetune'][base]
+        for rank, launches in uniad_dp.items():
+            r[f'uniad_dp_rank{rank}_launches'] = launches[base]
         for run, launches in {**uniad, **later, **v2_runs}.items():
             r[f'{run}_launches'] = launches[base]
     print(json.dumps({'kernels': results}))
@@ -4804,4 +5226,6 @@ def main() -> int:
 
 
 if __name__ == '__main__':
+    if sys.argv[1:2] == ['--clip-memory']:
+        sys.exit(clip_memory([int(n) for n in sys.argv[2:]] or [1, 2]))
     sys.exit(main())

@@ -1,4 +1,5 @@
-"""One rank of the port's two-process CPU runs (tests/test_torch_distributed.py).
+"""One rank of the port's two-process CPU runs (tests/test_torch_distributed.py,
+tests/test_torch_uniad_distributed.py).
 
     python tests/_torch_dist_worker.py steps OUT
         The environment names the process group (``VIDAR_COORDINATOR``,
@@ -18,6 +19,18 @@
         RANK`` -> ``OUT/cli_rank{R}.pt``: the trained parameters, the
         checkpoint files this rank wrote, the test CLI's return and, on
         rank 0, the per-sample metric dicts it aggregated.
+
+    python tests/_torch_dist_worker.py uniad OUT RANK PORT1 PORT2 PORT3 ARGS.json
+        UniAD at ``configs/tiny/uniad_tiny.py``. ``OUT/uniad_inputs.pt``
+        holds the weights and the bs-2 clip (frames, targets, command); the
+        rank takes its sample. First, with no process group, the clip loss's
+        forward and backward (the per-rank normalised variant); then one
+        ``UniADTrainStep`` in a Gloo group on PORT1 (dropout off); then
+        ``tools.train`` and ``tools.test`` at two ranks on PORT2 and PORT3
+        with the argv lists of ARGS.json -> ``OUT/uniad_rank{R}.pt``: the
+        variant's losses and gradients, the step's metrics, summed
+        gradients and updated parameters, the trained parameters, the
+        checkpoint files this rank wrote and the test CLI's return.
 
 PyTorch runs on one thread, as the tests' in-process runs do.
 """
@@ -51,9 +64,11 @@ def det_cfg():
 
 
 def take(batch, r):
-    """Sample r of a batch dataclass, as a batch of one."""
+    """Sample r of a batch dataclass, as a batch of one (a field None
+    stays None)."""
     return type(batch)(**{
-        f.name: (take(v, r) if dataclasses.is_dataclass(v) else v[r:r + 1])
+        f.name: (take(v, r) if dataclasses.is_dataclass(v) else
+                 None if v is None else v[r:r + 1])
         for f in dataclasses.fields(batch)
         for v in (getattr(batch, f.name),)})
 
@@ -109,12 +124,11 @@ def steps(out):
     torch.save(res, os.path.join(out, f'rank{r}.pt'))
 
 
-def cli(out, r, port1, port2, args_file):
+def _train_recording_writes(spec, r, port):
+    """``tools.train`` at two ranks -> (what it returned, the files this
+    rank's checkpoints wrote)."""
     from vidar_tpu_torch.core import checkpoint
-    from vidar_tpu_torch.tools import test as test_cli
     from vidar_tpu_torch.tools import train as train_cli
-    with open(args_file) as f:
-        spec = json.load(f)
     writes = []
     save = torch.save
 
@@ -123,10 +137,76 @@ def cli(out, r, port1, port2, args_file):
         return save(obj, path, *a, **kw)
 
     checkpoint.torch.save = recording_save
+    try:
+        trained = train_cli.main(spec['train'] + [
+            '--coordinator', f'127.0.0.1:{port}', '--num-processes', '2',
+            '--process-id', str(r)])
+    finally:
+        checkpoint.torch.save = save
+    return trained, writes
+
+
+def uniad_clip_loss_of(model, frames, targets, command):
+    """The clip's forward and weighted loss -> (total, per-term losses)."""
+    from vidar_tpu_torch.uniad.clip_matcher import FrameGT
+    from vidar_tpu_torch.uniad.loss import uniad_clip_loss
+    gt = FrameGT(boxes=targets.track_boxes, labels=targets.track_labels,
+                 ids=targets.track_ids, num_valid=targets.track_num)
+    track_losses, out, matched = model.clip_forward(
+        frames, gt, targets.l2g_r, targets.l2g_t, targets.timestamp, command,
+        deterministic=False, with_masks=True)
+    return uniad_clip_loss(track_losses, out, targets, matched,
+                           task_loss_weight=model.task_loss_weight)
+
+
+def uniad_model(sd):
+    from vidar_tpu_torch.core.builder import build_model
+    from vidar_tpu_torch.core.config import load_config
+    cfg = load_config(os.path.join(REPO, 'configs', 'tiny',
+                                   'uniad_tiny.py'))['model']
+    return _model(lambda **kw: build_model(cfg, **kw), {}, sd)
+
+
+def uniad(out, r, port1, port2, port3, args_file):
+    from vidar_tpu_torch.tools import test as test_cli
+    from vidar_tpu_torch.train import UniADTrainStep
+    inputs = torch.load(os.path.join(out, 'uniad_inputs.pt'),
+                        weights_only=False)
+    frames, targets = take(inputs['frames'], r), take(inputs['targets'], r)
+    command = inputs['command'][r:r + 1]
+    res = {}
+    # the per-rank normalised variant: no process group yet
+    m = uniad_model(inputs['sd']).train()
+    total, losses = uniad_clip_loss_of(m, frames, targets, command)
+    total.backward()
+    res['local'] = ({k: float(v) for k, v in losses.items()}, _grads(m))
+
+    assert maybe_initialize_distributed(f'127.0.0.1:{port1}', 2, r,
+                                        device='cpu')
+    m = uniad_model(inputs['sd'])
+    metrics = UniADTrainStep(m, make_optimizer(m, device='cpu'),
+                             task_loss_weight=m.task_loss_weight,
+                             device='cpu')((frames, targets, command))
+    res['step'] = (metrics, _grads(m), m.state_dict())
+    shutdown()
+
+    with open(args_file) as f:
+        spec = json.load(f)
+    trained, writes = _train_recording_writes(spec, r, port2)
+    res['metrics'] = test_cli.main(spec['test'] + [
+        '--coordinator', f'127.0.0.1:{port3}', '--num-processes', '2',
+        '--process-id', str(r)])
+    res.update(params=trained['model'].state_dict(), log=trained['log'],
+               writes=writes)
+    torch.save(res, os.path.join(out, f'uniad_rank{r}.pt'))
+
+
+def cli(out, r, port1, port2, args_file):
+    from vidar_tpu_torch.tools import test as test_cli
+    with open(args_file) as f:
+        spec = json.load(f)
+    trained, writes = _train_recording_writes(spec, r, port1)
     dist = ['--num-processes', '2', '--process-id', str(r)]
-    trained = train_cli.main(spec['train'] + ['--coordinator',
-                                              f'127.0.0.1:{port1}'] + dist)
-    checkpoint.torch.save = save
     gathered = []
     aggregate = test_cli.aggregate_frame_metrics
 
@@ -149,6 +229,8 @@ def main(argv):
         steps(argv[1])
     elif argv[0] == 'cli':
         cli(argv[1], int(argv[2]), argv[3], argv[4], argv[5])
+    elif argv[0] == 'uniad':
+        uniad(argv[1], int(argv[2]), *argv[3:7])
     else:
         raise SystemExit(f'unknown job {argv[0]!r}')
     print('RANK_OK', flush=True)

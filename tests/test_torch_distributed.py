@@ -33,10 +33,8 @@ functions of one module fixture.
 import json
 import os
 import pathlib
-import socket
 import subprocess
 import sys
-import time
 from collections.abc import Mapping
 
 import numpy as np
@@ -54,6 +52,7 @@ from vidar_tpu.models import BEVFormer as JaxBEVFormer
 from vidar_tpu.models import ViDAR as JaxViDAR
 from vidar_tpu.train.optim import make_optimizer as jax_make_optimizer
 
+from tests._torch_dist_spawn import _free_port, _spawn, _wait
 from tests.data.fake_nuscenes import make_fake_nuscenes
 from vidar_tpu_torch.configs import vidar_finetune_tiny
 from vidar_tpu_torch.convert import state_dict_from_jax
@@ -66,7 +65,6 @@ from vidar_tpu_torch.parallel import (initialized,
 from vidar_tpu_torch.tools import test as test_cli
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-WORKER = ROOT / 'tests' / '_torch_dist_worker.py'
 TINY = str(ROOT / 'configs' / 'tiny' / 'vidar_tiny.py')
 # test_torch_train.py's shapes, gate and tolerances, at one sample a rank
 SHAPES = dict(queue_length=2, future_length=2, num_cams=3, img_h=64,
@@ -78,50 +76,6 @@ F32_EPS = float(np.finfo(np.float32).eps)
 # above the lidar points of a test window of the fake dataset (256 a
 # keyframe and as many in each of its 2 padded sweeps; at most 3 frames)
 ALL_POINTS = 4096
-# a group of two ranks that has not finished in this time has hung
-SPAWN_TIMEOUT = 600
-
-
-def _free_port():
-    with socket.socket() as s:
-        s.bind(('127.0.0.1', 0))
-        return s.getsockname()[1]
-
-
-def _spawn(argvs, envs, log_dir):
-    """Start one worker process a rank -> the processes (their output in
-    log_dir/rank{r}.log)."""
-    procs = []
-    for r, (argv, env) in enumerate(zip(argvs, envs)):
-        with open(os.path.join(log_dir, f'rank{r}.log'), 'w') as log:
-            procs.append(subprocess.Popen(
-                [sys.executable, str(WORKER), *argv], cwd=ROOT,
-                env=dict(os.environ, OMP_NUM_THREADS='1', **env),
-                stdout=log, stderr=subprocess.STDOUT))
-    return procs
-
-
-def _wait(procs, log_dir):
-    """Wait for every rank; a rank that fails ends the others (they would
-    wait for it in a collective) and the test."""
-    deadline = time.monotonic() + SPAWN_TIMEOUT
-    try:
-        while any(p.poll() is None for p in procs):
-            if any(p.poll() not in (None, 0) for p in procs):
-                break
-            if time.monotonic() > deadline:
-                break
-            time.sleep(0.1)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, p in enumerate(procs):
-        with open(os.path.join(log_dir, f'rank{r}.log')) as f:
-            out = f.read()
-        assert p.returncode == 0 and 'RANK_OK' in out, \
-            f'rank {r} (rc {p.returncode}):\n{out[-4000:]}'
 
 
 def _random_params(shapes, seed):

@@ -97,3 +97,32 @@ def test_latent_rendering_module_matches_jax():
     # small (see tests/models/test_latent_rendering.py)
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=1e-4 * np.abs(want).max())
+
+
+def test_latent_rendering_occupancy_mlp_matches_jax():
+    """``num_pred_fcs=2``: occ_fc{i} + occ_ln{i} (flax's LayerNorm, epsilon
+    1e-6) + ReLU before the occupancy head, in JAX's order; the JAX tree
+    loads strictly, every leaf consumed. The norms' scales and biases are
+    drawn away from their init (1, 0), so that a missing or misplaced norm
+    shows."""
+    cfg = dict(embed_dims=32, pred_height=4, grid_num=8, grid_step=0.5,
+               reduction=8, act='sigmoid', num_pred_fcs=2)
+    rng = np.random.default_rng(6)
+    embed = rng.standard_normal((1, H, W, 32)).astype(np.float32)
+    mod = jlr.LatentRendering(**cfg)
+    params = jax.jit(mod.init)(jax.random.PRNGKey(0), jnp.asarray(embed))
+    params = jax.tree_util.tree_map_with_path(
+        lambda path, v: (v + 0.3 * rng.standard_normal(v.shape).astype(
+            np.float32) if path[-2].key.startswith('occ_ln') else v),
+        params)
+    want = np.asarray(jax.jit(mod.apply)(params, jnp.asarray(embed)))
+    sd = state_dict_from_jax(params)
+    assert len(sd) == len(jax.tree_util.tree_leaves(params))
+    assert {'occ_fc1.linear.weight', 'occ_ln1.weight',
+            'occ_ln1.bias'} <= set(sd)
+    port = LatentRendering(**cfg)
+    port.load_state_dict(sd, strict=True)
+    with torch.inference_mode():
+        got = port(torch.from_numpy(embed)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-4 * np.abs(want).max())

@@ -2,19 +2,21 @@
 
 ``configs/tiny/uniad_tiny.py``'s model (embed 32, BEV 8x8, 16 track
 queries, 12 map queries, 3 cameras, R50 with DCN in stages 3-4, one
-latent-render layer) on a 2-frame synthetic batch, numpy-seeded weights
+latent-render layer) on 2-frame synthetic batches, numpy-seeded weights
 carried over with ``state_dict_from_jax``. Held:
 
 * the eval forward (``deterministic``: the planner's collision
-  optimisation on) over 3 streamed frames: every head's outputs, and the
-  tracker's state after each frame (``obj_idxes`` exactly);
+  optimisation on) over 3 streamed frames at bs 1: every head's outputs,
+  and the tracker's state after each frame (``obj_idxes`` exactly);
 * with dropout off on both sides (flax's ``Dropout`` and its attention
   dropout patched out, the port in ``eval()``), the train-time clip
-  (``clip_forward``, ``with_masks``): its matches, every term of
-  ``uniad_clip_loss`` and every parameter gradient (JAX's compiled at
+  (``clip_forward``, ``with_masks``) at bs 2, whose samples differ in
+  their gt, map and valid plan-step counts (JAX normalises over its one
+  global batch), with the port's checkpoints on: its matches, every term
+  of ``uniad_clip_loss`` and every parameter gradient (JAX's compiled at
   XLA's default optimisation level);
 * one ``UniADTrainStep`` against JAX's ``make_uniad_train_step`` (its loss
-  gradient and ``apply_gradients`` on the same optimizer).
+  gradient and ``apply_gradients`` on the same optimizer) on that batch.
 
 One module-scoped fixture does all the JAX work: one ``eval_shape`` trace,
 a jitted forward and a jitted ``value_and_grad`` of the clip loss, whose
@@ -63,6 +65,9 @@ REL_TOL = 1e-4
 MIN_GRAD_COSINE = 0.999
 SHAPES = dict(bs=1, queue_length=1, future_length=1, num_cams=3, img_h=64,
               img_w=64, max_points=32)
+CLIP_SHAPES = dict(SHAPES, bs=2)
+# the clip's samples: gt boxes, map elements, valid plan steps
+NUM_GT, NUM_MAP, PLAN_STEPS = (5, 3), (3, 1), (6, 4)
 # the tracker's birth and death thresholds (RuntimeTracker's defaults)
 THRESHOLDS = (0.4, 0.35)
 # flax paths of parameters under each of JAX's optimizer labels: the
@@ -101,41 +106,49 @@ def _random_params(shapes, seed=0):
 
 
 def _targets(rng, tc, g=6, gm=4, t_m=4, tp=6, to_=1, hw=(8, 8)):
-    """A clip's targets as numpy arrays: the same instances drifting 1 m a
-    frame with consistent ids, one of the G slots padding."""
+    """A bs-2 clip's targets as numpy arrays: per sample, instances
+    drifting 1 m a frame with consistent ids; the samples' counts of gt
+    (the rest of the G slots padding), map elements and valid plan steps
+    are ``NUM_GT``, ``NUM_MAP`` and ``PLAN_STEPS``. Every box, padding
+    included, has a non-zero size: a zero-size box normalises to -inf,
+    which JAX's loss multiplies by its mask into NaN (ROADMAP.md §3)."""
+    bs = len(NUM_GT)
     hh, ww = hw
-    boxes = np.zeros((1, g, 9), np.float32)
-    boxes[0, :, :2] = rng.uniform(-20, 20, (g, 2))
-    boxes[0, :, 3:6] = rng.uniform(1, 4, (g, 3))
-    boxes[0, :, 6] = rng.uniform(-np.pi, np.pi, g)
-    labels = rng.integers(0, 10, (1, g)).astype(np.int32)
-    tb = np.zeros((1, tc, g, 10), np.float32)
+    boxes = np.zeros((bs, g, 9), np.float32)
+    boxes[..., :2] = rng.uniform(-20, 20, (bs, g, 2))
+    boxes[..., 3:6] = rng.uniform(1, 4, (bs, g, 3))
+    boxes[..., 6] = rng.uniform(-np.pi, np.pi, (bs, g))
+    labels = rng.integers(0, 10, (bs, g)).astype(np.int32)
+    tb = np.zeros((bs, tc, g, 10), np.float32)
     for t in range(tc):
-        b9 = boxes[0].copy()
-        b9[:, 0] += t * 1.0
-        tb[0, t] = np.concatenate(
-            [b9[:, 0:2], np.log(b9[:, 3:5]), b9[:, 2:3], np.log(b9[:, 5:6]),
-             np.sin(b9[:, 6:7]), np.cos(b9[:, 6:7]), b9[:, 7:9]], -1)
+        b9 = boxes.copy()
+        b9[..., 0] += t * 1.0
+        tb[:, t] = np.concatenate(
+            [b9[..., 0:2], np.log(b9[..., 3:5]), b9[..., 2:3],
+             np.log(b9[..., 5:6]), np.sin(b9[..., 6:7]),
+             np.cos(b9[..., 6:7]), b9[..., 7:9]], -1)
+    num_gt = np.array(NUM_GT, np.int32)
+    sdc_mask = (np.arange(tp)[None] < np.array(PLAN_STEPS)[:, None]).astype(
+        np.float32)
     return dict(
-        gt_boxes=boxes, gt_labels=labels,
-        num_valid_gt=np.array([g - 1], np.int32),
-        map_boxes=rng.uniform(0.2, 0.8, (1, gm, 4)).astype(np.float32),
-        map_labels=rng.integers(0, 3, (1, gm)).astype(np.int32),
-        num_valid_map=np.array([gm - 1], np.int32),
-        gt_traj=rng.normal(size=(1, g, t_m, 2)).astype(np.float32),
-        gt_traj_valid=np.ones((1, g, t_m), np.float32),
-        sdc_traj=rng.normal(size=(1, tp, 3)).astype(np.float32),
-        sdc_mask=np.ones((1, tp), np.float32),
-        gt_occ=(rng.uniform(size=(1, g, to_, hh, ww)) > 0.7).astype(
+        gt_boxes=boxes, gt_labels=labels, num_valid_gt=num_gt,
+        map_boxes=rng.uniform(0.2, 0.8, (bs, gm, 4)).astype(np.float32),
+        map_labels=rng.integers(0, 3, (bs, gm)).astype(np.int32),
+        num_valid_map=np.array(NUM_MAP, np.int32),
+        gt_traj=rng.normal(size=(bs, g, t_m, 2)).astype(np.float32),
+        gt_traj_valid=np.ones((bs, g, t_m), np.float32),
+        sdc_traj=rng.normal(size=(bs, tp, 3)).astype(np.float32),
+        sdc_mask=sdc_mask,
+        gt_occ=(rng.uniform(size=(bs, g, to_, hh, ww)) > 0.7).astype(
             np.float32),
-        map_masks=(rng.uniform(size=(1, gm, hh, ww)) > 0.6).astype(
+        map_masks=(rng.uniform(size=(bs, gm, hh, ww)) > 0.6).astype(
             np.float32),
         track_boxes=tb, track_labels=np.repeat(labels[:, None], tc, 1),
-        track_ids=np.tile(np.arange(g, dtype=np.int32) + 100, (1, tc, 1)),
-        track_num=np.full((1, tc), g - 1, np.int32),
-        l2g_r=np.tile(np.eye(3, dtype=np.float32), (1, tc, 1, 1)),
-        l2g_t=np.zeros((1, tc, 3), np.float32),
-        timestamp=np.arange(tc, dtype=np.float32)[None] * 0.5)
+        track_ids=np.tile(np.arange(g, dtype=np.int32) + 100, (bs, tc, 1)),
+        track_num=np.repeat(num_gt[:, None], tc, 1),
+        l2g_r=np.tile(np.eye(3, dtype=np.float32), (bs, tc, 1, 1)),
+        l2g_t=np.zeros((bs, tc, 3), np.float32),
+        timestamp=np.tile(np.arange(tc, dtype=np.float32) * 0.5, (bs, 1)))
 
 
 def _stream_frames(frames, k):
@@ -172,10 +185,12 @@ def _jax_side(alongside=None):
     cfg = load_config(CONFIG)['model']
     jmodel = jax_build_model(jax_load_config(CONFIG)['model'])
     jframes = jax_synthetic_batch(np.random.default_rng(0), **SHAPES)
-    tc = jframes.images.shape[1]
+    jclip = jax_synthetic_batch(np.random.default_rng(0), **CLIP_SHAPES)
+    tc = jclip.images.shape[1]
     tnp = _targets(np.random.default_rng(1), tc)
     jt = JaxTargets(**{k: jnp.asarray(v) for k, v in tnp.items()})
     command = np.array([1], np.int32)
+    clip_command = np.array([1, 2], np.int32)
     n, c = cfg['bev_h'] * cfg['bev_w'], cfg['embed_dims']
     key = jax.random.PRNGKey(0)
     shapes = jax.eval_shape(lambda: jmodel.init(
@@ -189,8 +204,8 @@ def _jax_side(alongside=None):
 
     def clip_loss(p):
         track_losses, out, matched = jmodel.apply(
-            p, jframes, gt, jt.l2g_r, jt.l2g_t, jt.timestamp,
-            jnp.asarray(command), deterministic=False, with_masks=True,
+            p, jclip, gt, jt.l2g_r, jt.l2g_t, jt.timestamp,
+            jnp.asarray(clip_command), deterministic=False, with_masks=True,
             method=jmodel.clip_forward, rngs={'dropout': key, 'aug': key})
         total, losses = jax_clip_loss(track_losses, out, jt, matched,
                                       task_loss_weight=cfg[
@@ -233,13 +248,14 @@ def _jax_side(alongside=None):
             jtracks, prev_bev = out['tracks'], out['bev']
             jstream.append(jax.tree.map(np.asarray, out))
         j = dict(cfg=cfg, tnp=tnp, command=command,
+                 clip_command=clip_command,
                  params=jax.tree.map(np.asarray, params))
         port = alongside(j) if alongside else {}
         (jtotal, jaux), jgrads = grad_exe.result()(params)
 
     j.update(port, **jax.tree.map(np.asarray, dict(
-        jframes=jframes, jstream=jstream, jtotal=jtotal, jaux=jaux,
-        jgrads=jgrads)))
+        jframes=jframes, jclip=jclip, jstream=jstream, jtotal=jtotal,
+        jaux=jaux, jgrads=jgrads)))
     return j
 
 
@@ -254,8 +270,11 @@ def _port_side(j):
         model.eval()                                  # dropout off
         tframes = make_synthetic_batch(np.random.default_rng(0), **SHAPES,
                                        device='cpu')
+        tclip = make_synthetic_batch(np.random.default_rng(0),
+                                     **CLIP_SHAPES, device='cpu')
         tt = UniADTargets(**{k: torch.from_numpy(v) for k, v in tnp.items()})
         tcommand = torch.from_numpy(command)
+        tclip_command = torch.from_numpy(j['clip_command'])
         tstream = []
         with torch.inference_mode():
             tracks, tprev = model.init_stream(1, 'cpu')
@@ -272,7 +291,7 @@ def _port_side(j):
         tgt = FrameGT(boxes=tt.track_boxes, labels=tt.track_labels,
                       ids=tt.track_ids, num_valid=tt.track_num)
         track_losses, tout, matched = model.clip_forward(
-            tframes, tgt, tt.l2g_r, tt.l2g_t, tt.timestamp, tcommand,
+            tclip, tgt, tt.l2g_r, tt.l2g_t, tt.timestamp, tclip_command,
             deterministic=False, with_masks=True)
         total, losses = uniad_clip_loss(track_losses, tout, tt, matched,
                                         task_loss_weight=cfg[
@@ -280,9 +299,10 @@ def _port_side(j):
         total.backward()
     finally:
         torch.set_num_threads(threads)
-    return dict(model=model, tframes=tframes, tt=tt, tcommand=tcommand,
-                tstream=tstream, total=total, losses=losses,
-                track_losses=track_losses, tout=tout, matched=matched)
+    return dict(model=model, tframes=tframes, tclip=tclip, tt=tt,
+                tclip_command=tclip_command, tstream=tstream, total=total,
+                losses=losses, track_losses=track_losses, tout=tout,
+                matched=matched)
 
 
 def _close(got, want, what, tol=REL_TOL):
@@ -303,9 +323,10 @@ def test_weights_and_batch_carry_over(run):
                  'cross_attn.sampling_offsets.weight'):
         assert name in sd, name
     for name in ('images', 'lidar2img', 'can_bus', 'shift', 'rotate_angle'):
-        np.testing.assert_array_equal(
-            getattr(run['tframes'], name).numpy(),
-            np.asarray(getattr(run['jframes'], name)))
+        for port, jax_side in (('tframes', 'jframes'), ('tclip', 'jclip')):
+            np.testing.assert_array_equal(
+                getattr(run[port], name).numpy(),
+                np.asarray(getattr(run[jax_side], name)))
 
 
 @pytest.mark.parametrize('frame', range(3))
@@ -360,9 +381,8 @@ def test_clip_matches_and_track_losses_match_jax(run):
     np.testing.assert_array_equal(run['tout']['tracks'].obj_idxes.numpy(),
                                   np.asarray(run['jaux'][6].obj_idxes))
     # every valid gt of the last frame is tracked by exactly one slot
-    m = np.asarray(matched)[0]
-    assert sorted(m[m >= 0].tolist()) == list(range(
-        int(run['tnp']['track_num'][0, -1])))
+    for m, n in zip(np.asarray(matched), run['tnp']['track_num'][:, -1]):
+        assert sorted(m[m >= 0].tolist()) == list(range(int(n)))
     for k in ('loss_cls', 'loss_bbox'):
         _close(run['track_losses'][k], track_losses[k], k)
 
@@ -474,7 +494,7 @@ def test_train_step_matches_jax(run):
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        metrics = step((run['tframes'], run['tt'], run['tcommand']))
+        metrics = step((run['tclip'], run['tt'], run['tclip_command']))
     finally:
         torch.set_num_threads(threads)
     for k, v in run['jaux'][0].items():

@@ -2,8 +2,8 @@
 this process on the CPU (``--device cpu``) on the fake on-disk dataset of
 ``tests/data/fake_nuscenes.py`` (two scenes): 2 clip steps, then the UniAD
 eval of the checkpoint, which streams the tracker over the scenes and
-writes the six headline metrics. A UniAD config refuses to run across
-processes."""
+writes the six headline metrics. Two processes:
+tests/test_torch_uniad_distributed.py."""
 
 import json
 
@@ -54,8 +54,3 @@ def test_train_then_eval(tmp_path, one_thread):
         assert np.isfinite(written[k]), (k, written)
         assert written[k] == pytest.approx(float(metrics[k]))
 
-
-def test_uniad_refuses_several_processes(monkeypatch):
-    monkeypatch.setattr(test_cli, 'world_size', lambda: 2)
-    with pytest.raises(SystemExit, match='one process'):
-        test_cli.refuse_uniad_across_processes()

@@ -240,7 +240,9 @@ def _map_deform_proj(sd, src) -> Dict[str, Any]:
 
 def _map_latent_render(sd, src) -> Dict[str, Any]:
     out: Dict[str, Any] = {}
-    # num_pred_fcs=0: unsup_raymarching_head.0 is the occupancy Linear
+    # assumes num_pred_fcs=0, as the JAX import does (vidar_tpu/core/
+    # checkpoint.py:210): unsup_raymarching_head.0 is the occupancy Linear;
+    # a model with occ_fc{i} / occ_ln{i} keeps them from its init
     _map_linear(sd, f'{src}.unsup_raymarching_head.0',
                 out.setdefault('occ_head', {}))
     _map_linear(sd, f'{src}.lora_a', out.setdefault('lora_a', {}))

@@ -1,7 +1,8 @@
 """Latent rendering: radial ray marching over BEV features (port of
 ``LatentRendering``, vidar_tpu/models/latent_rendering.py:489-568).
 
-Per BEV cell: an occupancy head gives per-height logits; the first-hit
+Per BEV cell: an occupancy head (``num_pred_fcs`` x Linear + LayerNorm +
+ReLU, then a Linear) gives per-height logits; the first-hit
 probability along the radial ray through the cell (K3) weights an
 aggregation of LoRA-down features along the same ray (K4); the LoRA-up
 features, scaled per height group by the first-hit probability, replace the
@@ -15,7 +16,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.latent_render import ray_aggregate, ray_first_hit
-from .layers import TorchLinear
+from .layers import LayerNorm, TorchLinear
 
 
 def bev_center_grids(h: int, w: int) -> np.ndarray:
@@ -46,8 +47,6 @@ class LatentRendering(nn.Module):
                  grid_step: float = 0.5, reduction: int = 16,
                  act: str = 'exp', dtype=None, device=None):
         super().__init__()
-        if num_pred_fcs:
-            raise NotImplementedError('num_pred_fcs > 0 is not ported')
         if act not in ('exp', 'sigmoid'):
             raise NotImplementedError(act)
         self.embed_dims, self.pred_height = embed_dims, pred_height
@@ -55,6 +54,12 @@ class LatentRendering(nn.Module):
         self.act, self.dtype = act, dtype
         self.c_r = embed_dims // reduction
         kw = dict(dtype=dtype, device=device)
+        self.num_pred_fcs = num_pred_fcs
+        # flax's occ_fc{i} / occ_ln{i} (LayerNorm epsilon 1e-6), in order
+        for i in range(num_pred_fcs):
+            setattr(self, f'occ_fc{i}',
+                    TorchLinear(embed_dims, embed_dims, **kw))
+            setattr(self, f'occ_ln{i}', LayerNorm(embed_dims, device=device))
         self.occ_head = TorchLinear(embed_dims, pred_height, **kw)
         self.lora_a = TorchLinear(embed_dims, self.c_r, **kw)
         self.lora_b = TorchLinear(self.c_r, embed_dims, **kw)
@@ -63,7 +68,11 @@ class LatentRendering(nn.Module):
         """embed [bs, bev_h, bev_w, C] -> same shape (f32)."""
         bs, bev_h, bev_w, c = embed.shape
         n, zdim = bev_h * bev_w, self.pred_height
-        occ_pred = self.occ_head(embed)                    # [bs, H, W, Z]
+        h = embed
+        for i in range(self.num_pred_fcs):
+            h = torch.relu(getattr(self, f'occ_ln{i}')(
+                getattr(self, f'occ_fc{i}')(h)))
+        occ_pred = self.occ_head(h)                        # [bs, H, W, Z]
         grids, radial_norm, steps = ray_geometry(
             bev_h, bev_w, self.grid_num, self.grid_step, embed.device)
         occ_path_prob = ray_first_hit(occ_pred, grids, radial_norm, steps,

@@ -10,7 +10,7 @@ config runs the detection eval instead: the full window, or ``--streaming``
 frame by frame on the cached BEV, through ``DetectionRunner``, then NDS /
 mAP. A ``UniAD`` config streams the tracker over each scene and reports
 ``amota``, ``amotp``, ``NDS``, ``minADE``, ``planning.L2`` and
-``planning.obj_box_col`` among its metrics (one process only).
+``planning.obj_box_col`` among its metrics.
 
 Usage:
   python -m vidar_tpu_torch.tools.test CONFIG [CHECKPOINT_DIR | PTH]
@@ -29,6 +29,8 @@ one a rank, and gathers their per-frame metrics on rank 0, which alone
 aggregates, prints and writes them; the other ranks return None. The
 detection eval, window or streaming, runs whole in every process (as in
 JAX: streaming needs the continuous video); rank 0 alone prints and writes.
+So does UniAD's eval, whose tracker streams over each scene; its other
+ranks return None.
 """
 
 from __future__ import annotations
@@ -101,15 +103,6 @@ def save_submission(pred_dist, frame_idx, sample_idx, out_dir):
         with open(path, 'w') as fh:
             for v in d:
                 fh.write(f'{v:f}\n')
-
-
-def refuse_uniad_across_processes():
-    """UniAD runs in one process: its losses do not yet sum their
-    normalisers over the ranks (ROADMAP.md queue 1)."""
-    if world_size() > 1:
-        raise SystemExit('UniAD configs run in one process; --num-processes '
-                         f'{world_size()} is not supported yet (its losses '
-                         'do not sum their normalisers over the ranks)')
 
 
 def load_model_weights(model, checkpoint: Optional[str]):
@@ -186,7 +179,9 @@ def uniad_eval(args, cfg, model, dataset, device):
     tracker and the previous BEV streamed over each scene (reset at a scene
     change), then AMOTA / AMOTP (reference nuscenes_e2e_dataset.py:
     1161-1181), NDS / mAP on the tracked boxes, motion minADE / minFDE / MR
-    / EPA and planning L2 / collision."""
+    / EPA and planning L2 / collision. Across processes every rank runs
+    the whole split (as JAX's eval does); rank 0 alone prints and writes,
+    and the other ranks return None."""
     from ..evals.tracking import evaluate_tracking
     from ..uniad.loss import _track_assign
     from ..uniad.metrics import MotionMetric, PlanningMetric
@@ -260,7 +255,7 @@ def uniad_eval(args, cfg, model, dataset, device):
             plan_m.update(out['plan']['sdc_traj'][:, :tp].cpu().numpy(),
                           targets.sdc_traj[:, :tp, :2].numpy(),
                           targets.sdc_mask[:, :tp].numpy(), seg_t[None])
-            if (i + 1) % 10 == 0:
+            if (i + 1) % 10 == 0 and is_main():
                 print(f'[{i + 1}/{n}]', flush=True)
 
     metrics = dict(evaluate_tracking(predictions, ground_truth, classes))
@@ -271,6 +266,8 @@ def uniad_eval(args, cfg, model, dataset, device):
     plan = plan_m.compute()
     metrics['planning.L2'] = float(np.mean(plan['L2']))
     metrics['planning.obj_box_col'] = float(np.mean(plan['obj_box_col']))
+    if not is_main():
+        return None
     for k, v in metrics.items():
         print(f'{k}: {float(v):.4f}')
     if args.out:
@@ -352,8 +349,8 @@ def run_val_evaluation(cfg, model, max_samples=None, device='cuda'):
 
 
 def main(argv: Optional[Sequence[str]] = None):
-    """-> the metrics (None on a rank other than 0 of a forecast eval). A
-    process group that it joined, it leaves before it returns."""
+    """-> the metrics (None on a rank other than 0 of a forecast or UniAD
+    eval). A process group that it joined, it leaves before it returns."""
     args = parse_args(argv)
     joined = maybe_initialize_distributed(
         args.coordinator, args.num_processes, args.process_id,
@@ -369,8 +366,6 @@ def _evaluate(args):
     device = local_device(args.device)
     cfg = apply_overrides(load_config(args.config), args.cfg_options)
     uniad = cfg['model'].get('type', 'ViDAR') == 'UniAD'
-    if uniad:
-        refuse_uniad_across_processes()
     model = build_model(cfg['model'], device=device)
     dataset = build_dataset(cfg['data']['test'])
     load_model_weights(model, args.checkpoint)

@@ -4,7 +4,7 @@ card).
 Builds the model and the train split from a config, feeds the epochs'
 samples through the threaded ``PrefetchLoader``, steps ``TrainStep`` (a
 ViDAR pre-training config), ``DetTrainStep`` (a BEVFormer fine-tune
-config) or ``UniADTrainStep`` (a UniAD config, one process only), logs
+config) or ``UniADTrainStep`` (a UniAD config), logs
 the metrics as JSON lines, evaluates with ``EvalHook`` and
 ``run_val_evaluation``, and writes checkpoint directories (``latest/``,
 ``step_N/``, ``best/``, ``ema_latest/``) under the work dir.
@@ -57,7 +57,7 @@ from ..train import (DetTrainStep, TrainStep, UniADTrainStep,
                      make_optimizer)
 from ..train.ema import EMA
 from ..train.eval_hook import EvalHook
-from .test import refuse_uniad_across_processes, run_val_evaluation
+from .test import run_val_evaluation
 
 
 def parse_args(argv: Optional[Sequence[str]] = None):
@@ -102,8 +102,6 @@ def _train(args):
     device = local_device(args.device)
     cfg = apply_overrides(load_config(args.config), args.cfg_options)
     uniad = cfg['model'].get('type', 'ViDAR') == 'UniAD'
-    if uniad:
-        refuse_uniad_across_processes()
     work_dir = args.work_dir or cfg.get('work_dir') or os.path.join(
         'work_dirs', os.path.splitext(os.path.basename(args.config))[0])
     if is_main():

@@ -159,8 +159,10 @@ class UniADTrainStep(_Step):
     (``track_boxes`` et al.) train the clip through ``UniAD.clip_forward``;
     without them the single frame. Dropout draws from PyTorch's default
     generator, and the step draws nothing else (UniAD has no grid mask or
-    Gumbel noise), so it takes no generator. One process only: the UniAD
-    losses do not sum their normalisers over ranks."""
+    Gumbel noise), so it takes no generator. Across processes the UniAD
+    losses divide by normalisers summed over the ranks (``uniad.loss``,
+    ``UniAD.clip_forward``) and ``_update`` sums the gradients and the
+    losses, as for the other steps."""
 
     def __init__(self, model, optimizer, *,
                  task_loss_weight: Optional[dict] = None, device='cuda'):

@@ -6,6 +6,14 @@ The heads return raw predictions; this module assembles the
 fixed-capacity targets. The motion and occupancy targets follow the
 track assignment: the Hungarian match of the single-frame step, or the
 clip matcher's last-frame match.
+
+Across processes each rank computes its share of the global batch's
+loss: every batch-dependent normaliser (the single-frame step's positive
+count, the map loss's mean over samples, the supervised agents, slots and
+plan steps) is summed over the ranks here, in the loss assembly, where
+every rank reaches it in the same order (``parallel.mesh.global_sum``:
+the value itself in one process). Per-sample normalisers (the map
+matcher's gt count, the clip matcher's) stay local, as in JAX.
 """
 
 from __future__ import annotations
@@ -17,7 +25,9 @@ import torch
 import torch.nn.functional as F
 
 from ..core import bbox as bbox_core
-from .motion_head import traj_loss
+from ..parallel.mesh import global_sum
+from ..parallel.multihost import world_size
+from .motion_head import supervised_agents, traj_loss
 from .occ_head import dice_loss_with_masks, fiery_binary_seg_loss
 from .panseg_head import panseg_loss_single
 from .planning_head import planning_loss
@@ -88,7 +98,7 @@ def _detr_losses(cls_scores, bbox_preds, assigned, gt_norm, gt_labels,
                          torch.full_like(a_safe, num_classes))
     targets = torch.gather(gt_norm, 1, a_safe[..., None].expand(
         -1, -1, gt_norm.shape[-1]))
-    num_pos = pos.sum().float().clamp(min=1.0)
+    num_pos = global_sum(pos.sum().float()).clamp(min=1.0)
     cls_l = bbox_core.sigmoid_focal_loss(
         cls_scores, labels, num_classes).sum() * cls_weight / num_pos
     isfin = (torch.isfinite(targets).all(-1) & pos)[..., None]
@@ -140,7 +150,9 @@ def uniad_clip_loss(track_losses, out, targets: UniADTargets, matched_last,
 def occ_loss(occ_logits, gt_occ, a_safe, pos):
     """Focal plus dice loss of [B, A, To, H, W] instance-occupancy logits
     against the [B, G, Tg, H, W] gt rows ``a_safe`` [B, A'] selects
-    (slots with ``pos`` false count nothing). Block 0 of the logits is
+    (slots with ``pos`` false count nothing), each a mean over the global
+    batch's ``pos`` slots (every rank calls it, from
+    ``_downstream_losses``). Block 0 of the logits is
     the present and block k the k-th future frame; the dataset's gt
     holds future frames only, gt[k] at time k + 1. Where Tg is To or 1
     the blocks pair with the gt as in the JAX package (which fails to
@@ -155,13 +167,15 @@ def occ_loss(occ_logits, gt_occ, a_safe, pos):
     if t_gt not in (1, occ_a.shape[2]):
         occ_a = occ_a[:, :, 1:1 + t_gt]
     valid = pos[..., None, None, None].float()
-    return (fiery_binary_seg_loss(occ_a, gt_occ, valid) +
-            dice_loss_with_masks(occ_a, gt_occ, valid))
+    num_pos = global_sum(pos.sum().float())
+    return (fiery_binary_seg_loss(occ_a, gt_occ, valid, num_pos) +
+            dice_loss_with_masks(occ_a, gt_occ, valid, num_pos))
 
 
 def _downstream_losses(out, targets: UniADTargets, assigned_last, w, losses,
                        num_map_things: int = 3):
-    # ---- map: the last seg layer's DETR loss, averaged over samples ----
+    # ---- map: the last seg layer's DETR loss, averaged over the global
+    # batch's samples ----
     seg_cls = out['seg']['outputs_classes'][-1]
     seg_box = out['seg']['outputs_coords'][-1]
     per = [panseg_loss_single(seg_cls[i], seg_box[i], targets.map_labels[i],
@@ -169,7 +183,8 @@ def _downstream_losses(out, targets: UniADTargets, assigned_last, w, losses,
                               num_things_classes=num_map_things)
            for i in range(seg_cls.shape[0])]
     map_assign = torch.stack([p.pop('assign') for p in per])
-    map_total = sum(torch.stack([p[k] for p in per]).mean()
+    global_bs = seg_cls.shape[0] * world_size()
+    map_total = sum(torch.stack([p[k] for p in per]).sum() / global_bs
                     for k in per[0])
     # the thing masks (reference DiceLoss weight 2.0, panseg_head.py:64):
     # the gt masks follow the Hungarian assignment through the top-k
@@ -184,7 +199,8 @@ def _downstream_losses(out, targets: UniADTargets, assigned_last, w, losses,
                             .expand(-1, -1, hb, wb))
         valid_m = (a_top >= 0)[..., None, None].float()
         map_total = map_total + 2.0 * dice_loss_with_masks(
-            seg_masks['thing_masks'], gt_m, valid_m)
+            seg_masks['thing_masks'], gt_m, valid_m,
+            global_sum(valid_m.sum()))
     losses['map.loss'] = map_total
 
     # ---- motion: the MTP loss on the slots the track assignment aligns --
@@ -203,12 +219,14 @@ def _downstream_losses(out, targets: UniADTargets, assigned_last, w, losses,
     pad = max(t_m - targets.sdc_traj.shape[1], 0)
     sdc_xy = F.pad(targets.sdc_traj[:, :t_m, :2], (0, 0, 0, pad))[:, None]
     sdc_valid = F.pad(targets.sdc_mask[:, :t_m], (0, pad))[:, None]
+    traj_valid = torch.cat([agent_valid.float(), sdc_valid.float()], 1)
+    agent_mask = torch.cat([pos.float(),
+                            torch.ones_like(pos[:, :1]).float()], 1)
     motion = traj_loss(
         out['motion']['all_traj_scores'][-1],
         out['motion']['all_traj_preds'][-1],
-        torch.cat([agent_traj, sdc_xy], 1),
-        torch.cat([agent_valid.float(), sdc_valid.float()], 1),
-        torch.cat([pos.float(), torch.ones_like(pos[:, :1]).float()], 1))
+        torch.cat([agent_traj, sdc_xy], 1), traj_valid, agent_mask,
+        global_sum(supervised_agents(traj_valid, agent_mask).sum()))
     losses['motion.loss'] = motion['loss_traj']
 
     # ---- occupancy, aligned by the same assignment ----
@@ -217,9 +235,10 @@ def _downstream_losses(out, targets: UniADTargets, assigned_last, w, losses,
 
     # ---- planning ----
     tp = out['plan']['sdc_traj'].shape[1]
+    plan_mask = targets.sdc_mask[:, :tp]
     losses['planning.loss'] = planning_loss(
-        out['plan']['sdc_traj'], targets.sdc_traj[:, :tp, :2],
-        targets.sdc_mask[:, :tp])
+        out['plan']['sdc_traj'], targets.sdc_traj[:, :tp, :2], plan_mask,
+        global_sum(plan_mask.float().sum()))
     total = (w['track'] * losses['track.loss'] +
              w['map'] * losses['map.loss'] +
              w['motion'] * losses['motion.loss'] +

@@ -434,20 +434,30 @@ def traj_nll(pred, traj_gt, valid):
     return (nll * valid).sum(-1) / (valid.sum(-1) + 1e-5)
 
 
-def traj_loss(log_scores, trajs, gt_traj, gt_valid, agent_mask,
+def supervised_agents(gt_valid, agent_mask):
+    """[B * A] 1 where an agent is supervised: in ``agent_mask`` [B, A]
+    with at least one valid step of ``gt_valid`` [B, A, T]."""
+    b, a_, t_ = gt_valid.shape
+    valid = gt_valid.reshape(b * a_, t_).float()
+    return agent_mask.reshape(b * a_).float() * (valid.sum(-1) > 0)
+
+
+def traj_loss(log_scores, trajs, gt_traj, gt_valid, agent_mask, num_agents,
               use_variance: bool = True, cls_loss_weight: float = 0.5,
               nll_loss_weight: float = 0.5, loss_weight_minade: float = 0.0,
               loss_weight_minfde: float = 0.25):
     """One layer's MTP loss over the supervised agents: log_scores [B, A,
     P], trajs [B, A, P, T, 5], gt_traj [B, A, T, 2], gt_valid [B, A, T],
     agent_mask [B, A] -> dict(loss_traj, l_class, l_reg, l_minade,
-    l_minfde, l_mr)."""
+    l_minfde, l_mr). Each term is summed over the supervised agents
+    (``supervised_agents``) and divided by ``num_agents``, the global
+    batch's count of them."""
     b, a_, p_, t_, _ = trajs.shape
     traj = trajs.reshape(b * a_, p_, t_, 5)
     gt = gt_traj.reshape(b * a_, t_, 2)
     valid = gt_valid.reshape(b * a_, t_).float()
-    m = agent_mask.reshape(b * a_).float() * (valid.sum(-1) > 0)
-    denom = m.sum() + 1e-5
+    m = supervised_agents(gt_valid, agent_mask)
+    denom = num_agents + 1e-5
     l_minfde, _ = min_fde(traj, gt, valid)
     l_minade, inds = min_ade(traj, gt, valid)
     l_mr = (miss_rate(traj, gt, valid) * m).sum() / denom

@@ -322,40 +322,34 @@ def _bce_logits(logits, targets):
             torch.log1p(torch.exp(-logits.abs())))
 
 
-def fiery_binary_seg_loss(logits, targets, valid=None, top_k_ratio=0.25,
-                          future_discount=0.95):
-    """Top-k BCE with a future discount over [B, Q, T, H, W] masks,
-    normalised over the valid agent slots."""
+def fiery_binary_seg_loss(logits, targets, valid, num_valid,
+                          top_k_ratio=0.25, future_discount=0.95):
+    """Top-k BCE with a future discount over [B, Q, T, H, W] masks, the
+    slots outside ``valid`` zeroed, summed and divided by ``num_valid``
+    (the global batch's count of valid agent slots)."""
     t_axis = logits.shape[2]
     bce = _bce_logits(logits, targets)
     disc = future_discount ** torch.arange(t_axis, dtype=torch.float32,
                                            device=logits.device)
-    bce = bce * disc[None, None, :, None, None]
-    if valid is not None:
-        bce = bce * valid
+    bce = bce * disc[None, None, :, None, None] * valid
     b, q, t, h, w = bce.shape
     k = max(1, int(h * w * top_k_ratio))
     top = torch.topk(bce.reshape(b, q, t, h * w), k, -1).values
-    per_slot = top.mean((2, 3))
-    if valid is None:
-        return per_slot.mean()
-    slot_valid = valid.reshape(b, q)
-    return per_slot.sum() / slot_valid.sum().clamp(min=1.0)
+    return top.mean((2, 3)).sum() / num_valid.clamp(min=1.0)
 
 
-def dice_loss_with_masks(logits, targets, valid=None, eps: float = 1.0):
-    """Dice over sigmoid masks, normalised over the valid agent slots."""
-    p = torch.sigmoid(logits)
-    if valid is not None:
-        p = p * valid
-        targets = targets * valid
+def dice_loss_with_masks(logits, targets, valid, num_valid,
+                         eps: float = 1.0):
+    """Dice over sigmoid masks, the slots outside ``valid`` zeroed, summed
+    and divided by ``num_valid`` (the global batch's count of valid
+    slots)."""
+    p = torch.sigmoid(logits) * valid
+    targets = targets * valid
     axes = tuple(range(2, logits.dim()))
     num = 2.0 * (p * targets).sum(axes)
     den = p.sum(axes) + targets.sum(axes) + eps
     per = 1.0 - (num + eps) / den
-    if valid is None:
-        return per.mean()
     b, q = per.shape[:2]
     slot_valid = valid.reshape(b, q)
     per = per.reshape(b, q, -1).mean(-1) * slot_valid
-    return per.sum() / slot_valid.sum().clamp(min=1.0)
+    return per.sum() / num_valid.clamp(min=1.0)

@@ -148,9 +148,10 @@ def collision_optimize(traj, occ_mask, *, bev_h: int = 200,
     return p
 
 
-def planning_loss(sdc_traj, gt_traj, mask):
-    """Masked L2 ADE (PlanningLoss)."""
+def planning_loss(sdc_traj, gt_traj, mask, num_valid):
+    """Masked L2 ADE (PlanningLoss): the error summed over the steps in
+    ``mask`` and divided by ``num_valid``, the global batch's count of
+    them."""
     err = torch.linalg.norm(sdc_traj[..., :2] - gt_traj[..., :2], dim=-1)
-    m = mask.float()
-    return (err * m).sum() / (m.sum() + 1e-5)
+    return (err * mask.float()).sum() / (num_valid + 1e-5)
 
