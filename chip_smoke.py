@@ -1,10 +1,12 @@
 """Chip smoke test of the PyTorch/CUDA port: the ViDAR forecast, the
 pre-training step, the BEVFormer detection fine-tune (eval, streaming eval
 and train step, in f32 and bf16), the train and test CLIs on the released
-configs, data parallelism across processes, UniAD (its eval, clip train
-step and CLIs), the data path from raw nuScenes tables through the port's
-data-preparation tools, and the BEVFormerV2 family (with DD3D and
-InternImage), the voxel renderer and the visualisation tool, on one GPU.
+configs (each one it does not run is held to one it runs by
+tests/test_torch_config_matrix.py), data parallelism across processes,
+UniAD (its eval, clip train step and CLIs), the data path from raw
+nuScenes tables through the port's data-preparation tools, and the
+BEVFormerV2 family (with DD3D and InternImage), the voxel renderer and the
+visualisation tool, on one GPU.
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and the
 CUDA toolkit:
@@ -54,7 +56,7 @@ it drives; a kernel of the path that never launched fails the run:
    gradients); each backward kernel against autograd of its plain forward
    in f32 on the kept inputs, and K2 on the step's one-image
    (camera-sequential backbone) and 24-image (history) stage-3 inputs, as
-   in phase 3; then two timed steps, the forward alone (autograd on, the
+   in phase 3; then a timed step, the forward alone (autograd on, the
    graph freed without a backward) and the step's peak device memory;
 6. the f32 fine-tune ``BEVFormer(**vidar_finetune_1_8_nusc_3future())`` at
    full width and depth, random weights as above (bs 1, 4+1 frames, 6
@@ -77,7 +79,7 @@ it drives; a kernel of the path that never launched fails the run:
    on the step's one-image (camera-sequential) and 24-image (history)
    stage-3 and stage-4 inputs (cases ``stage3,b1`` ... ``stage4,b24``) with
    ``F.grid_sample`` as the library yardstick, as in phase 6,
-   two timed steps with peak device memory, and one step with the host's
+   a timed step with peak device memory, and one step with the host's
    Hungarian calls timed;
 8. the bf16 forecast of ``vidar_base`` with a deformable conv in every
    ResNet stage (``backbone_dcn=(True,) * 4``) at phase 2's shapes and
@@ -101,17 +103,17 @@ it drives; a kernel of the path that never launched fails the run:
    JPEG on one thread (and a cProfile of one) and on the train CLI's 4
    threads, and one PNG sample on one thread; ``tools.train`` on the
    released pre-training config (``vidar_1_8_nusc_3future``, f32, full
-   width and depth, its ``ida_aug_conf`` resize, crop and flip) for 3
-   steps with its eval hook once; ``tools.test`` on that checkpoint (2
+   width and depth, its ``ida_aug_conf`` resize, crop and flip) for 1
+   step with its eval hook once; ``tools.test`` on that checkpoint (2
    samples, 7 frames of metrics); ``tools.train`` on the released
-   fine-tune config for 2 steps from that checkpoint (n_loaded > 0);
+   fine-tune config for 1 step from that checkpoint (n_loaded > 0);
    ``tools.test`` on the fine-tuned checkpoint, full window and streaming
-   (3 samples, NDS and mAP); ``tools.train`` on the mem-efficient
-   pre-training config for 2 steps; on the BEVFormer baseline for 1 step
+   (2 samples, NDS and mAP); ``tools.train`` on the mem-efficient
+   pre-training config for 1 step; on the BEVFormer baseline for 1 step
    from a synthetic ``r101_dcn_fcos3d_pretrain.pth`` (the published
    R101-DCN shapes under ``backbone.``, with decoy keys: every backbone
    tensor grafted, none mismatched, only the decoys unmapped); and on the
-   OpenScene pre-training config for 2 steps, on a second fixture of 8
+   OpenScene pre-training config for 1 step, on a second fixture of 8
    JPEG cameras at 1080x1920 and PCD lidar. Each run's wall time, s/it,
    ``data_wait_s``, peak device memory and launches (K1, K9 and, but in
    the baseline, K3, K4 in every run; K5 and, but in the baseline, K6/K7
@@ -128,18 +130,19 @@ it drives; a kernel of the path that never launched fails the run:
    weights, no grid mask, no dropout, Gumbel argmax: a warm-up step kept,
    one timed step), then two spawned ranks of one sample each on the one
    card over Gloo (NCCL refuses two ranks on one device): a counted
-   warm-up step (K1-K8 must launch on each rank, K9 and K10 not), two timed
-   steps with the gradient all-reduce timed, the parameters' digests equal
+   warm-up step (K1-K8 must launch on each rank, K9 and K10 not), a timed
+   step with the gradient all-reduce timed, the parameters' digests equal
    between the ranks after every step, step 1's losses, summed gradients
    and update held to the bs-2 process (``DP_LOSS_RTOL``,
    ``DP_MIN_COSINE``); then the same at test size with ``DetTrainStep``
    (f32, 0 GT boxes on rank 0, 40 on rank 1). Each rank's s/it (two ranks
    share the card: not a speed), all-reduce seconds, gradient bytes and
-   peak memory. b: the train CLI (2 steps) and the test CLI's forecast
-   eval (2 samples), each loading on one thread, on the released
-   pre-training config with ``--coordinator --num-processes 1
-   --process-id 0`` on NCCL (the backend printed), against the same runs without a process group
-   (``DP_CLI_RTOL``). c: the train CLI at two ranks on two cards over
+   peak memory. b: the train CLI (1 step, loading on one thread) and the
+   test CLI's forecast eval (2 samples, on its 4 loader threads) on the
+   released pre-training config with ``--coordinator --num-processes 1
+   --process-id 0`` on NCCL (the backend printed), against the same runs
+   without a process group (``DP_CLI_RTOL``). c: the train CLI at two
+   ranks on two cards over
    NCCL, only where the machine shows two cards; the line says whether it
    ran;
 11. UniAD (``configs/uniad/stage2_e2e/vidar_e2e.py``: embed 256, BEV
@@ -153,26 +156,28 @@ it drives; a kernel of the path that never launched fails the run:
    optimisation, and the rest, in ms as one JSON line), then the clip
    train step (``UniADTrainStep``, 40 agents with persistent ids) at the
    config's 6 frames (no cut: a clip that does not fit fails the phase):
-   its warm-up, a step at 2 frames (its peak beside the 73.2 GiB of the
-   same step with nothing recomputed)
-   and a timed 6-frame step (s/it, peak memory), each counted step's
+   a step at 2 frames as the warm-up (its peak beside the 73.2 GiB of the
+   same step with nothing recomputed), then the timed 6-frame step (s/it,
+   peak memory with the kernels' kept inputs), each counted step's
    launches by case held to the counts the code gives
    (``_uniad_clip_launches``: the backbone camera by camera and every
    frame's BEV encoder recomputed in the backward); b: on phase 9's JPEG
    fixture with persistent instances (``_uniad_fixture``): the train CLI
-   on ``vidar_e2e.py`` for 2 steps of the config's clip (its launches
+   on ``vidar_e2e.py`` for 1 step of the config's clip (its launches
    held likewise), its UniAD eval of 4 samples of one scene (the six
    metrics ``UNIAD_KEYS``, each finite, printed), ``base_track_map.py``
-   for 1 step (K1, K5 and K9; no latent rendering), no depth cut; each
+   for 1 step of a 2-frame clip (K1, K5 and K9; no latent rendering; a
+   depth cut: the e2e runs take its modules through 6 frames); each
    run's wall time, peak memory and launches; c: UniAD across processes
    (``_phase11c``): two Gloo ranks of ``vidar_e2e.py`` on the one card,
    each with a clip of its own (40 and 24 agents, 8 and 3 map elements),
    dropout off, at the config's clip or, where a rank runs out of device
-   memory, one frame fewer each time (the cut printed), per rank s/it,
-   the gradient all-reduce's seconds and bytes and peak memory, the
-   ranks' parameters bit-identical after each step (a mismatch fails);
-   the UniAD train and test CLIs on
-   NCCL at world size 1; the train CLI at two NCCL ranks on two cards
+   memory, one frame fewer each time (the cut printed), one step a rank
+   (its warm-up included): per rank s/it, the gradient all-reduce's
+   seconds and bytes and peak memory, the ranks' parameters
+   bit-identical after the step (a mismatch fails);
+   the UniAD train (a 2-frame clip) and test CLIs on NCCL at world size
+   1; the train CLI at two NCCL ranks on two cards
    where the machine shows two (the line says whether it ran).
    The eval, the step and the e2e CLI runs keep each kernel's first input
    of each case and hold it against its plain version (phase 9's check):
@@ -192,10 +197,10 @@ it drives; a kernel of the path that never launched fails the run:
    against what was written (``_check_converted``: counts, frame_idx, the
    nearest CAN-bus message, the GT boxes in the lidar frame), the
    converter's host time a sample; c: ``vidar_e2e.py`` through the train
-   CLI for 2 steps on the converted train pkl with its map gt and k-means
-   anchors (the config's 6-frame clips), ``map.loss`` finite and above
+   CLI for 1 step on the converted train pkl with its map gt and k-means
+   anchors (a 2-frame clip), ``map.loss`` finite and above
    0, then its UniAD eval on the val pkl; d: the fullset pre-training
-   config for 2 steps on the merged traintest pkl; e: ``BEVFormerFP16`` at
+   config for 1 step on the merged traintest pkl; e: ``BEVFormerFP16`` at
    phase 6's full width and batch: the window eval, 3 streamed frames and a
    train step with every kernel counted and held against its plain
    version on its kept bf16 inputs (K1b at TSA, SCA and the detection
@@ -239,10 +244,32 @@ it drives; a kernel of the path that never launched fails the run:
    pickle and ``browse``, every PNG read back by this script's own zlib
    decoder (``_read_png``: size, colours). ``v2_eval_launches``,
    ``v2_step_launches``, ``internimage_launches`` and
-   ``viz_*_cli_launches`` in the kernel line.
+   ``viz_*_cli_launches`` in the kernel line;
+14. the released configs that no earlier phase runs, at their widths,
+   through the CLIs with PyTorch's default switches on phase 9's fixtures
+   (``_phase14(counted, card, check, tmp, data, os_data, fixture_pkl)``):
+   a: ``bevformer_small.py`` (BEV 150x150, 3 encoder layers, queue 3) 1
+   step and the detection eval of 1 sample from its checkpoint (K1, K9,
+   K5); b: ``bevformer_tiny.py`` (R50 without DCN, BEV 50x50) likewise
+   from init (K1, K5; K9, K2 and K10 must not launch); c: the 1-future
+   fine-tune (latent rendering at grid step 1.0) 1 step; d: the OpenScene
+   submission config through the test CLI on 2 samples of the 8-camera
+   fixture (5 history frames, the ego mask off): one depth file a future
+   frame and sample, as many finite lines as that frame's rays; e:
+   ``vidar_track_map.py`` and ``base_e2e.py`` 1 step each at a 2-frame
+   clip (a depth cut: phase 11 runs the same modules at 6 frames); f: the
+   released fine-tune config 2 steps from one init with cudnn's TF32
+   switch on and off as the CLI starts (the CLI computes an f32 model's
+   convolutions in f32: each loss term within ``TF32_LOSS_RTOL``, the
+   gradient norms, the updates' largest relative difference). Each run's
+   wall time, s/it, peak memory and launches; every kernel of a, b, c, d
+   and e's ``vidar_track_map`` held against its plain version on the
+   run's own inputs (phase 9's check). ``p14_*_launches`` in the kernel
+   line.
 
-The line before the last is a JSON object of per-kernel results; the last
-is ``{"ok": true, "device": {...}}``.
+Each phase's seconds are printed as it ends, and all of them with the
+script's total after phase 14. The line before the last is a JSON object
+of per-kernel results; the last is ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --clip-memory [FRAMES ...]`` runs none of the
 above: UniAD's clip train step (``clip_memory``) by clip length (default
@@ -298,6 +325,10 @@ TOLERANCES = {
 # gradient); a gradient the kernel returns in bf16 is also rounded once to
 # bf16 (2^-9 of the element), hence 4e-3 of the largest
 BACKWARD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 4e-3}
+
+# the timed train steps after a warm-up (phases 5, 7 and 13a): one keeps
+# the script inside its time limit
+TIMED_STEPS = 1
 
 # NVIDIA H100 SXM peaks (data sheet, dense): HBM bytes/s, bf16 tensor-core
 # and f32 (no tensor core) operations/s
@@ -1343,39 +1374,36 @@ def _check_decoder(sources, jpegs):
         raise RuntimeError(f'JPEG: a fixture camera at {min(psnr):.2f} dB')
 
 
-def _loader_timing(cfg_path, opts, label, samples=3, threads=True):
-    """Train samples of ``cfg_path``'s train split on one thread, then
-    (``threads``) one under cProfile and 8 on the train CLI's 4 loader
+def _loader_timing(cfg_path, opts, label, threads=True):
+    """A train sample of ``cfg_path``'s train split on one thread, then
+    (``threads``) one under cProfile and 4 on the train CLI's 4 loader
     threads."""
     from vidar_tpu_torch.core.builder import build_dataset
     from vidar_tpu_torch.core.config import apply_overrides, load_config
     from vidar_tpu_torch.data.prefetch import PrefetchLoader
     ds = build_dataset(apply_overrides(load_config(str(cfg_path)),
                                        opts)['data']['train'])
-    times = []
-    for i in range(samples):
-        t0 = time.perf_counter()
-        ds[i]
-        times.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    ds[0]
     print(f'loader, {label}: a train sample on one thread '
-          f'{" ".join(f"{t:.3f}" for t in times)} s', flush=True)
+          f'{time.perf_counter() - t0:.3f} s', flush=True)
     if not threads:
         return
     # where a sample's host time goes (cProfile: each numpy or native call
     # is one entry), then the train CLI's loader: 4 threads
     prof = cProfile.Profile()
-    prof.runcall(ds.__getitem__, samples)
+    prof.runcall(ds.__getitem__, 1)
     top = sorted(pstats.Stats(prof).stats.items(),
                  key=lambda kv: -kv[1][2])[:8]
     print(f'loader, {label}, one sample under cProfile, most own time: ' +
           '; '.join(f'{fn[2]} ({Path(fn[0]).name}:{fn[1]}) {st[2]:.3f} s'
                     for fn, st in top), flush=True)
     t0 = time.perf_counter()
-    for _ in PrefetchLoader(ds.__getitem__, range(8), num_threads=4,
+    for _ in PrefetchLoader(ds.__getitem__, range(4), num_threads=4,
                             depth=4):
         pass
-    print(f'loader, {label}: 8 train samples on 4 threads (the train '
-          f'CLI\'s PrefetchLoader): {(time.perf_counter() - t0) / 8:.3f} '
+    print(f'loader, {label}: 4 train samples on 4 threads (the train '
+          f'CLI\'s PrefetchLoader): {(time.perf_counter() - t0) / 4:.3f} '
           f's/sample', flush=True)
 
 
@@ -1392,18 +1420,18 @@ def _train_log(name, out, steps):
 
 def _phase9(counted, card, check, tmp):
     """The port's train and test CLIs in this process, on the card, on
-    nuScenes-format fixtures with JPEG cameras written under ``tmp``: the pre-training config
-    for 3 steps (its eval hook once), the forecast eval of its checkpoint,
-    the fine-tune config for 2 steps from that checkpoint, the detection
-    eval of the fine-tuned one (full window, then streaming), the
-    mem-efficient pre-training config for 2 steps, the OpenScene
-    pre-training config for 2 steps on an 8-camera fixture, and the
-    BEVFormer baseline for 1 step from a synthetic FCOS3D ``.pth``. The
+    nuScenes-format fixtures with JPEG cameras written under ``tmp``: the
+    pre-training config for 1 step (its eval hook once), the forecast eval
+    of its checkpoint, the fine-tune config for 1 step from that
+    checkpoint, the detection eval of the fine-tuned one (full window, then
+    streaming), the mem-efficient pre-training config for 1 step, the
+    OpenScene pre-training config for 1 step on an 8-camera fixture, and
+    the BEVFormer baseline for 1 step from a synthetic FCOS3D ``.pth``. The
     pre-training, forecast-eval and OpenScene runs keep each kernel's
     first f32 input of each case, and ``check(run, keepers, launches)``
     holds the kernels against their plain versions on them.
     -> ({run: {kernel: launches}}, the ``--cfg-options`` of the nuScenes
-    fixture's data paths)."""
+    and of the OpenScene fixture's data paths)."""
     from vidar_tpu_torch.ops import dcn, latent_render, msda
     from vidar_tpu_torch.tools import test as test_cli
     from vidar_tpu_torch.tools import train as train_cli
@@ -1439,8 +1467,7 @@ def _phase9(counted, card, check, tmp):
                    'pre-training, JPEG fixture')
     _loader_timing(PRETRAIN_CONFIG,
                    [o.replace(pkl, png_pkl) for o in pre_opts],
-                   'pre-training, PNG fixture', samples=1,
-                   threads=False)
+                   'pre-training, PNG fixture', threads=False)
 
     def run(name, fn, argv, keepers=None):
         torch.cuda.empty_cache()
@@ -1473,8 +1500,8 @@ def _phase9(counted, card, check, tmp):
     keepers = _cli_keepers('cli_pretrain', train=True)
     out = run('pretrain', train_cli.main,
               [str(PRETRAIN_CONFIG), '--work-dir', pre_dir,
-               '--max-steps', '3', '--cfg-options', *pre_opts], keepers)
-    _train_log('pretrain', out, 3)
+               '--max-steps', '1', '--cfg-options', *pre_opts], keepers)
+    _train_log('pretrain', out, 1)
     if len(out['eval']) != 1:
         raise RuntimeError('cli pretrain: not one eval')
     _finite_metrics('pretrain eval', out['eval'][0][1], ('key_score',))
@@ -1496,9 +1523,9 @@ def _phase9(counted, card, check, tmp):
 
     out = run('finetune', train_cli.main,
               [str(FINETUNE_CONFIG), '--work-dir', ft_dir,
-               '--load-from', f'{pre_dir}/latest', '--max-steps', '2',
+               '--load-from', f'{pre_dir}/latest', '--max-steps', '1',
                '--cfg-options', *ft_opts])
-    _train_log('finetune', out, 2)
+    _train_log('finetune', out, 1)
     print(f'cli finetune: n_loaded {out["loaded"]}', flush=True)
     if out['loaded'] <= 0:
         raise RuntimeError('cli finetune: nothing loaded from the '
@@ -1508,7 +1535,7 @@ def _phase9(counted, card, check, tmp):
     for name, extra in (('det_eval', []), ('det_stream', ['--streaming'])):
         metrics = run(name, test_cli.main,
                       [str(FINETUNE_CONFIG), f'{ft_dir}/latest',
-                       '--max-samples', '3', *extra,
+                       '--max-samples', '2', *extra,
                        '--cfg-options', *data])
         _finite_metrics(name, metrics, ('NDS', 'mAP'))
         need(name, forward)
@@ -1521,9 +1548,9 @@ def _phase9(counted, card, check, tmp):
     # auxiliary frames; its train split's random_aug_conf)
     out = run('mem_efficient', train_cli.main,
               [str(MEM_EFFICIENT_CONFIG), '--work-dir', f'{tmp}/mem',
-               '--max-steps', '2', '--cfg-options', *data,
+               '--max-steps', '1', '--cfg-options', *data,
                'data.train.load_frame_interval=1', 'log_interval=1'])
-    _train_log('mem_efficient', out, 2)
+    _train_log('mem_efficient', out, 1)
     need('mem_efficient', forward + backward)
     shutil.rmtree(f'{tmp}/mem')
 
@@ -1562,19 +1589,20 @@ def _phase9(counted, card, check, tmp):
           flush=True)
     _check_decoder(sources, jpegs)
     del sources, jpegs
-    os_opts = [f'data.{s}.{k}={v}' for s in ('train', 'test')
+    os_data = [f'data.{s}.{k}={v}' for s in ('train', 'test')
                for k, v in (('ann_file', os_pkl), ('data_root', osc))]
-    os_opts += ['data.train.load_frame_interval=1', 'log_interval=1']
+    os_opts = os_data + ['data.train.load_frame_interval=1',
+                         'log_interval=1']
     _loader_timing(OPENSCENE_CONFIG, os_opts, 'OpenScene, JPEG fixture',
-                   samples=1, threads=False)
+                   threads=False)
     keepers = _cli_keepers('cli_openscene', train=True)
     out = run('openscene', train_cli.main,
               [str(OPENSCENE_CONFIG), '--work-dir', f'{tmp}/os_work',
-               '--max-steps', '2', '--cfg-options', *os_opts], keepers)
-    _train_log('openscene', out, 2)
+               '--max-steps', '1', '--cfg-options', *os_opts], keepers)
+    _train_log('openscene', out, 1)
     need('openscene', forward + backward)
     check('cli_openscene', keepers, runs['openscene'])
-    return runs, data
+    return runs, data, os_data
 
 
 # ------------------------------------------------------- phase 11: UniAD
@@ -1591,6 +1619,10 @@ UNIAD_KEYS = ('amota', 'amotp', 'NDS', 'minADE', 'planning.L2',
 UNIAD_2FRAME_NO_RECOMPUTE_GIB = 73.2
 # the library path's synthetic cameras: nuScenes' 6 at the padded size
 UNIAD_CAMS, UNIAD_IMAGE = 6, (928, 1600)
+# the clip of the train CLI on UniAD's other stage configs (11b's
+# base_track_map.py, 14e): phase 11a's short step; 11a-b run the same
+# modules at vidar_e2e.py's 6 frames
+UNIAD_SHORT_CLIP = 2
 
 
 def _uniad_msda_case(cfg, run='uniad'):
@@ -1639,9 +1671,9 @@ def _uniad_keepers(cfg, run, train):
     return keepers
 
 
-def _uniad_clip_launches(eval_by_case, eval_frames, frames, cams, steps=1):
-    """The launches by case that ``steps`` clip train steps of ``frames``
-    frames must make, from an eval run's (``eval_by_case``: {kernel:
+def _uniad_clip_launches(eval_by_case, eval_frames, frames, cams):
+    """The launches by case that a clip train step of ``frames`` frames
+    must make, from an eval run's (``eval_by_case``: {kernel:
     {case: launches}} of ``eval_frames`` streamed frames, one batched
     backbone pass of ``cams`` images a frame): per frame, the backbone
     camera by camera, each camera recomputed in the backward (K9 at
@@ -1678,7 +1710,7 @@ def _uniad_clip_launches(eval_by_case, eval_frames, frames, cams, steps=1):
             latent_render.AGGREGATE.name: render,
             latent_render.FIRST_HIT_BACKWARD.name: render_bwd,
             latent_render.AGGREGATE_BACKWARD.name: render_bwd}
-    return {k: {c: n * steps for c, n in v.items()} for k, v in want.items()}
+    return want
 
 
 def _hold_clip_launches(label, keepers, want):
@@ -1891,15 +1923,16 @@ def _phase11(counted, card, check, tmp, fixture_pkl, dev='cuda:0'):
     in stages 3-4, latent rendering at layer 2, 12 steps x 6 modes), f32,
     ``init_weights_`` from seed 0. a: the library: 3 streamed eval frames
     on a synthetic batch of 6 x 928x1600, a fourth timed stage by stage,
-    then the clip train step at 2 frames and at the config's 6, each
-    with its launches by case held to the counts the code gives
-    (``_uniad_clip_launches``), the 6-frame step timed again; b: the train
-    CLI on ``vidar_e2e.py`` (2 steps of the config's clip, its launches
+    then the clip train step at 2 frames (the warm-up) and at the
+    config's 6 (timed), each with its launches by case held to the counts
+    the code gives (``_uniad_clip_launches``); b: the train
+    CLI on ``vidar_e2e.py`` (1 step of the config's clip, its launches
     held likewise) and its UniAD eval (4 samples of one scene),
-    ``base_track_map.py`` (1 step), on phase 9's JPEG fixture made UniAD's
-    (``_uniad_fixture``). ``check`` holds every kernel of the library path
-    and of the e2e train and eval runs against its plain version on their
-    kept inputs. -> {path: {kernel: launches}}."""
+    ``base_track_map.py`` (1 step of a 2-frame clip), on phase 9's JPEG
+    fixture made UniAD's (``_uniad_fixture``). ``check`` holds every
+    kernel of the library path and of the e2e train and eval runs against
+    its plain version on their kept inputs. -> {path: {kernel:
+    launches}}."""
     from vidar_tpu_torch.core.builder import build_model
     from vidar_tpu_torch.core.config import apply_overrides, load_config
     from vidar_tpu_torch.data import make_synthetic_batch
@@ -2063,34 +2096,26 @@ def _phase11(counted, card, check, tmp, fixture_pkl, dev='cuda:0'):
         return (clip, targets, metrics, launches, keepers, took,
                 torch.cuda.max_memory_allocated())
 
-    clip, targets, metrics, launches, keepers, warm_s, warm_peak = (
-        counted_step(frames_cfg))
-    print(f'uniad clip step 1 (warm-up): {frames_cfg} frames (the config\'s '
-          f'queue_length + 1), {warm_s:.3f} s, peak memory '
-          f'{warm_peak / 2**30:.2f} GiB; metrics {json.dumps(metrics)}; '
-          f'launches {json.dumps(launches)}', flush=True)
+    # the warm-up at 2 frames, then the config's clip, timed
     two = counted_step(2)
-    print(f'uniad clip step at 2 frames: {two[-2]:.3f} s, peak memory '
-          f'{two[-1] / 2**30:.2f} GiB (nothing recomputed: '
+    print(f'uniad clip step 1 (warm-up) at 2 frames: {two[-2]:.3f} s, peak '
+          f'memory {two[-1] / 2**30:.2f} GiB (nothing recomputed: '
           f'{UNIAD_2FRAME_NO_RECOMPUTE_GIB} GiB) on {card}', flush=True)
     del two
+    clip, targets, metrics, launches, keepers, step_s, peak = counted_step(
+        frames_cfg)
+    kept = sum(_nbytes(v) for kp in keepers.values()
+               for a in kp.inputs.values() for v in a.values()
+               if torch.is_tensor(v))
+    print(f'uniad clip step 2: {frames_cfg} frames (the config\'s '
+          f'queue_length + 1) x {UNIAD_CAMS} x {ih}x{iw}, 40 agents: '
+          f'{step_s:.4f} s/it, peak memory {peak / 2**30:.2f} GiB (the '
+          f'kernels\' kept inputs {kept / 2**30:.2f} GiB of it at most); '
+          f'metrics {json.dumps(metrics)}; launches {json.dumps(launches)} '
+          f'on {card}', flush=True)
     runs['uniad_train'] = launches        # the config's clip's
     check('uniad_train', keepers, launches)
-    torch.backends.cudnn.allow_tf32 = False
-    del keepers
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    metrics = step((clip, targets, command))
-    torch.cuda.synchronize()
-    step_s = time.perf_counter() - t0
-    if not all(np.isfinite(v) for v in metrics.values()):
-        raise RuntimeError(f'phase 11a: non-finite step metrics {metrics}')
-    print(f'uniad clip step 2: {step_s:.4f} s/it, peak memory '
-          f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB '
-          f'({frames_cfg} frames x {UNIAD_CAMS} x {ih}x{iw}, 40 agents) on '
-          f'{card}', flush=True)
-    del model, step, clip, targets, batch
+    del keepers, model, step, clip, targets, batch
     torch.cuda.empty_cache()
 
     # -- 11b: the CLIs, as phase 9 runs them (PyTorch's default switches)
@@ -2116,13 +2141,12 @@ def _phase11(counted, card, check, tmp, fixture_pkl, dev='cuda:0'):
     keepers = _uniad_keepers(mcfg, 'cli_uniad_e2e', train=True)
     out = run('uniad_e2e', train_cli.main,
               [str(UNIAD_E2E_CONFIG), '--work-dir', work, '--max-steps',
-               '2', '--cfg-options', *data, 'log_interval=1'],
+               '1', '--cfg-options', *data, 'log_interval=1'],
               forward + backward, keepers)
-    _train_log('uniad_e2e', out, 2)
+    _train_log('uniad_e2e', out, 1)
     _hold_clip_launches(
-        f'cli uniad_e2e (2 steps of {frames_cfg} frames)', keepers,
-        _uniad_clip_launches(eval_by_case, 3, frames_cfg, UNIAD_CAMS,
-                             steps=2))
+        f'cli uniad_e2e (1 step of {frames_cfg} frames)', keepers,
+        _uniad_clip_launches(eval_by_case, 3, frames_cfg, UNIAD_CAMS))
     check('cli_uniad_e2e', keepers, runs['cli_uniad_e2e'])
     keepers = _uniad_keepers(mcfg, 'cli_uniad_eval', train=False)
     metrics = run('uniad_eval', test_cli.main,
@@ -2137,7 +2161,8 @@ def _phase11(counted, card, check, tmp, fixture_pkl, dev='cuda:0'):
     out = run('uniad_track_map', train_cli.main,
               [str(UNIAD_TRACK_MAP_CONFIG), '--work-dir',
                f'{tmp}/uniad_track_map', '--max-steps', '1',
-               '--cfg-options', *data, 'log_interval=1'],
+               '--cfg-options', *data, 'log_interval=1',
+               f'data.train.queue_length={UNIAD_SHORT_CLIP - 1}'],
               [msda.KERNEL, dcn.SAMPLE, msda.BACKWARD])
     _train_log('uniad_track_map', out, 1)
     if runs['cli_uniad_track_map'][latent_render.FIRST_HIT.name]:
@@ -2531,11 +2556,11 @@ def _cli_run(counted, card, name, fn, argv, keepers=None):
     return out, launches
 
 
-def _need(name, launches, kernels, absent=()):
+def _need(name, launches, kernels, absent=(), phase=12):
     never = [k.name for k in kernels if launches[k.name] <= 0]
     ran = [k.name for k in absent if launches[k.name]]
     if never or ran:
-        raise RuntimeError(f'phase 12 {name}: kernels {never} never '
+        raise RuntimeError(f'phase {phase} {name}: kernels {never} never '
                            f'launched, {ran} launched off their path')
 
 
@@ -2619,9 +2644,9 @@ def _phase12_data(tmp, jpegs):
 
 
 def _phase12_uniad(counted, card, paths):
-    """12c: ``vidar_e2e.py`` through the train CLI for 2 steps on the
-    converted train pkl with its map gt and k-means anchors (the config's
-    6-frame clips), then its UniAD eval on the val pkl. -> ({run:
+    """12c: ``vidar_e2e.py`` through the train CLI for 1 step on the
+    converted train pkl with its map gt and k-means anchors (a 2-frame
+    clip, ``UNIAD_SHORT_CLIP``), then its UniAD eval on the val pkl. -> ({run:
     launches}, the trained model's element count, the config's count by
     ``count_params``)."""
     from vidar_tpu_torch.core.builder import build_dataset
@@ -2654,12 +2679,13 @@ def _phase12_uniad(counted, card, paths):
         'queue_length'] + 1
     out, launches = _cli_run(
         counted, card, 'p12_uniad_e2e', train_cli.main,
-        [str(UNIAD_E2E_CONFIG), '--work-dir', work, '--max-steps', '2',
-         '--cfg-options', *opts, 'log_interval=1'])
+        [str(UNIAD_E2E_CONFIG), '--work-dir', work, '--max-steps', '1',
+         '--cfg-options', *opts, 'log_interval=1',
+         f'data.train.queue_length={UNIAD_SHORT_CLIP - 1}'])
     runs['p12_uniad_e2e'] = launches
     _need('uniad_e2e', launches, forward + backward,
           (dcn.KERNEL, dcn.SAMPLE16))
-    _train_log('p12_uniad_e2e', out, 2)
+    _train_log('p12_uniad_e2e', out, 1)
     model = out.pop('model')
     if model.anchors.abs().sum() == 0 or not torch.isfinite(
             model.anchors).all():
@@ -2669,7 +2695,8 @@ def _phase12_uniad(counted, card, paths):
         raise RuntimeError(f'phase 12c: map losses {mp}')
     built = analysis.param_counts(model)[0]
     counted_cfg = analysis.count_params(str(UNIAD_E2E_CONFIG))
-    print(f'phase 12c: the config\'s {frames}-frame clips; map gt: '
+    print(f'phase 12c: {UNIAD_SHORT_CLIP}-frame clips (a depth cut: the '
+          f'config\'s {frames} frames run in phase 11); map gt: '
           f'{n_map} elements in train sample 0; map.loss {mp} (finite, > 0); '
           f'k-means anchors {tuple(model.anchors.shape)} loaded; s/it '
           f'{[round(1 / m["it/s"], 3) for m in out["log"]]} on {card}',
@@ -2678,7 +2705,7 @@ def _phase12_uniad(counted, card, paths):
     torch.cuda.empty_cache()
     metrics, launches = _cli_run(
         counted, card, 'p12_uniad_eval', test_cli.main,
-        [str(UNIAD_E2E_CONFIG), f'{work}/latest', '--max-samples', '4',
+        [str(UNIAD_E2E_CONFIG), f'{work}/latest', '--max-samples', '2',
          '--out', f'{root}/uniad_p12.json', '--cfg-options', *opts])
     runs['p12_uniad_eval'] = launches
     _need('uniad_eval', launches, forward, (dcn.KERNEL, dcn.SAMPLE16))
@@ -2690,7 +2717,7 @@ def _phase12_uniad(counted, card, paths):
 
 
 def _phase12_fullset(counted, card, paths):
-    """12d: the fullset pre-training config for 2 steps on the merged
+    """12d: the fullset pre-training config for 1 step on the merged
     traintest pkl -> {run: launches}."""
     from vidar_tpu_torch.ops import dcn, latent_render, msda
     from vidar_tpu_torch.tools import train as train_cli
@@ -2698,7 +2725,7 @@ def _phase12_fullset(counted, card, paths):
     out, launches = _cli_run(
         counted, card, 'p12_fullset', train_cli.main,
         [str(FULLSET_CONFIG), '--work-dir', f'{root}/fullset', '--max-steps',
-         '2', '--cfg-options', f'data.train.ann_file={pkl["traintest"]}',
+         '1', '--cfg-options', f'data.train.ann_file={pkl["traintest"]}',
          f'data.train.data_root={root}', f'data.test.ann_file={pkl["val"]}',
          f'data.test.data_root={root}', 'log_interval=1'])
     _need('fullset', launches,
@@ -2706,8 +2733,8 @@ def _phase12_fullset(counted, card, paths):
            latent_render.AGGREGATE, msda.BACKWARD,
            latent_render.FIRST_HIT_BACKWARD,
            latent_render.AGGREGATE_BACKWARD], (dcn.KERNEL, dcn.SAMPLE16))
-    _train_log('p12_fullset', out, 2)
-    print(f'phase 12d: {FULLSET_CONFIG.relative_to(ROOT)}, 2 steps on '
+    _train_log('p12_fullset', out, 1)
+    print(f'phase 12d: {FULLSET_CONFIG.relative_to(ROOT)}, 1 step on '
           f'the merged traintest pkl on {card}', flush=True)
     shutil.rmtree(f'{root}/fullset')
     return {'p12_fullset': launches}
@@ -2745,7 +2772,7 @@ def _phase12_bf16(counted, card, check, paths, dev):
     full-window eval and 3 streamed frames, then a train step, every
     kernel counted and held against its plain version on the bf16 inputs
     it kept (``check``); then the fine-tune train CLI with
-    ``model.type=BEVFormer_fp16`` for 2 steps on the converted train pkl
+    ``model.type=BEVFormer_fp16`` for 1 step on the converted train pkl
     and its test CLI on the val pkl. -> ({run: launches}, the model's
     last-layer class logits and boxes of the window eval, for 12f)."""
     from vidar_tpu_torch.configs import vidar_finetune_1_8_nusc_3future
@@ -2853,7 +2880,7 @@ def _phase12_bf16(counted, card, check, paths, dev):
     work = f'{root}/ft16'
     out, launches = _cli_run(
         counted, card, 'p12_bf16_finetune', train_cli.main,
-        [str(FINETUNE_CONFIG), '--work-dir', work, '--max-steps', '2',
+        [str(FINETUNE_CONFIG), '--work-dir', work, '--max-steps', '1',
          '--cfg-options', *opts])
     runs['p12_bf16_finetune'] = launches
     if type(out['model']).__name__ != 'BEVFormerFP16':
@@ -2861,11 +2888,11 @@ def _phase12_bf16(counted, card, check, paths, dev):
                            f'{type(out["model"]).__name__}')
     _need('bf16 fine-tune CLI', launches, forward + backward,
           (dcn.SAMPLE, dcn.SAMPLE16))
-    _train_log('p12_bf16_finetune', out, 2)
+    _train_log('p12_bf16_finetune', out, 1)
     del out
     metrics, launches = _cli_run(
         counted, card, 'p12_bf16_det_eval', test_cli.main,
-        [str(FINETUNE_CONFIG), f'{work}/latest', '--max-samples', '3',
+        [str(FINETUNE_CONFIG), f'{work}/latest', '--max-samples', '2',
          '--cfg-options', *opts])
     runs['p12_bf16_det_eval'] = launches
     _need('bf16 test CLI', launches, forward, (dcn.SAMPLE, dcn.SAMPLE16))
@@ -3326,7 +3353,7 @@ def _phase13_v2(counted, card, check, dev, mono):
     times = []
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    for _ in range(2):
+    for _ in range(TIMED_STEPS):
         t0 = time.perf_counter()
         losses, norm = step()
         torch.cuda.synchronize()
@@ -3633,6 +3660,287 @@ def _phase13(counted, card, check, dev, fixture_dir, tables, data):
     return runs
 
 
+# ------------------------------------ phase 14: the rest of the matrix
+
+BEVFORMER_SMALL_CONFIG = ROOT / 'configs' / 'bevformer' / 'bevformer_small.py'
+BEVFORMER_TINY_CONFIG = ROOT / 'configs' / 'bevformer' / 'bevformer_tiny.py'
+FINETUNE_1FUTURE_CONFIG = (ROOT / 'configs' / 'vidar_finetune' /
+                           'nusc_1_4_subset' / 'vidar_1_8_nusc_1future.py')
+SUBMIT_CONFIG = (ROOT / 'configs' / 'vidar_pretrain' / 'OpenScene' /
+                 'submit_vidar_OpenScene_mini_full_3future.py')
+UNIAD_VIDAR_TRACK_MAP_CONFIG = (ROOT / 'configs' / 'uniad' /
+                                'stage1_track_map' / 'vidar_track_map.py')
+UNIAD_BASE_E2E_CONFIG = (ROOT / 'configs' / 'uniad' / 'stage2_e2e' /
+                         'base_e2e.py')
+# 14f: every loss term of the fine-tune's first step with cudnn's TF32
+# switch on when the CLI starts within this of the same step with it off
+# (relative). The CLIs turn it off for an f32 model; with TF32 in its
+# convolutions a loss term moved by up to 5.9e-2 (ROADMAP.md §3)
+TF32_LOSS_RTOL = 1e-2
+
+
+def _phase14_tf32(run, data, tmp, dev):
+    """14f: the released f32 fine-tune config through the train CLI, 2
+    steps from one init checkpoint on the same batches (``--deterministic
+    --seed 0``), with cudnn's TF32 switch on (PyTorch's default) and off
+    as the CLI starts: each loss term, the gradient norm and the relative
+    difference between the two runs' updates (all of them, and the
+    largest of a parameter). Step 1 runs before any update, so its loss
+    terms show the forward's numerics alone, and it raises where one
+    differs by more than ``TF32_LOSS_RTOL``: the CLI computes an f32
+    model's convolutions in f32 either way. Step 2 is printed, not held:
+    the backward's f32 atomics sum in an order that changes from run to
+    run, and Adam's first update turns a gradient that is rounding noise
+    (an attention key bias) into a step of the learning rate, so two f32
+    runs already differ there."""
+    from vidar_tpu_torch.core.builder import build_model
+    from vidar_tpu_torch.core.checkpoint import save_checkpoint
+    from vidar_tpu_torch.core.config import load_config
+    from vidar_tpu_torch.tools import train as train_cli
+
+    # both runs load one init (the CLI's: seed 0)
+    model = build_model(load_config(str(FINETUNE_CONFIG))['model'],
+                        device=dev)
+    model.init_weights_(torch.Generator(device=dev).manual_seed(0))
+    init_dir = f'{tmp}/p14_tf32_init'
+    save_checkpoint(init_dir, {'model': model, 'step': 0})
+    init = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    tensors = len(model.state_dict())
+    del model
+    logs, updates = {}, {}
+    for tf32 in (True, False):
+        torch.backends.cudnn.allow_tf32 = tf32
+        name = f'tf32_{"on" if tf32 else "off"}'
+        work = f'{tmp}/p14_{name}'
+        out = run(name, train_cli.main,
+                  [str(FINETUNE_CONFIG), '--work-dir', work, '--load-from',
+                   init_dir, '--max-steps', '2', '--deterministic', '--seed',
+                   '0', '--cfg-options', *data, 'log_interval=1'])
+        if out['loaded'] != tensors:
+            raise RuntimeError(f'phase 14f: {out["loaded"]} tensors loaded '
+                               f'of the init\'s {tensors}')
+        _train_log(f'p14_{name}', out, 2)
+        logs[tf32] = out['log']
+        updates[tf32] = {n: p.detach().cpu() - init[n]
+                         for n, p in out.pop('model').named_parameters()}
+        del out
+        shutil.rmtree(work)
+        torch.cuda.empty_cache()
+    shutil.rmtree(init_dir)
+    torch.backends.cudnn.allow_tf32 = True
+    worst = []
+    for s, (on, off) in enumerate(zip(logs[True], logs[False])):
+        terms = {k: abs(on[k] - off[k]) / max(abs(off[k]), 1e-12)
+                 for k in off if 'loss' in k}
+        worst.append(max(terms.values()))
+        print(f'phase 14f step {s + 1}: the switch on vs off: ' + '; '.join(
+            f'{k} {on[k]:.6g} vs {off[k]:.6g} (rel {terms[k]:.3g})'
+            for k in sorted(terms)) + f'; grad_norm {on["grad_norm"]:.6g} '
+            f'vs {off["grad_norm"]:.6g}', flush=True)
+    rel = {n: ((updates[True][n] - u).abs().max() / u.abs().max()).item()
+           for n, u in updates[False].items() if u.abs().max() > 0}
+    name = max(rel, key=rel.get)
+    total = math.sqrt(
+        sum(float((updates[True][n] - u).square().sum())
+            for n, u in updates[False].items()) /
+        sum(float(u.square().sum()) for u in updates[False].values()))
+    print(f'phase 14f: {len(rel)} parameters updated; the two runs\' '
+          f'updates {total:.3g} apart relative to their norm, a parameter\'s '
+          f'by at most {rel[name]:.3g} ({name}); the largest loss term '
+          f'difference at step 1 {worst[0]:.3g} (limit {TF32_LOSS_RTOL}), '
+          f'at step 2 {worst[1]:.3g}', flush=True)
+    if worst[0] > TF32_LOSS_RTOL:
+        raise RuntimeError(f'phase 14f: with cudnn\'s TF32 switch on a loss '
+                           f'term moves by {worst[0]:.3g} of its f32 value')
+
+
+def _phase14_submission(run, os_data, tmp):
+    """14d: the OpenScene submission config through the test CLI on 2
+    samples of phase 9's 8-camera fixture (5 history frames, the ego mask
+    off, the config's ``_submission`` writer on): one depth file per future
+    frame a sample, as many finite lines as that frame's rays in
+    ``pred_dist``."""
+    from vidar_tpu_torch.core.config import load_config
+    from vidar_tpu_torch.tools import test as test_cli
+    sub = f'{tmp}/p14_submission'
+    rays = {}
+    save = test_cli.save_submission
+
+    def counting(pred_dist, frame_idx, sample_idx, out_dir):
+        rays[sample_idx] = {int(f): int((frame_idx == f).sum())
+                            for f in np.unique(frame_idx) if f > 0}
+        return save(pred_dist, frame_idx, sample_idx, out_dir)
+
+    test_cli.save_submission = counting
+    try:
+        metrics = run('submission', test_cli.main,
+                      [str(SUBMIT_CONFIG), '--max-samples', '2',
+                       '--cfg-options', *os_data,
+                       f'model._submission_path={sub}'], keep=True)
+    finally:
+        test_cli.save_submission = save
+    _finite_metrics('p14_submission', metrics, ('frame.6.chamfer_distance',))
+    cfg = load_config(str(SUBMIT_CONFIG))
+    futures = cfg['model']['test_future_frame_num']
+    want = {f'sample{i}_{f}.txt' for i in range(2)
+            for f in range(1, futures + 1)}
+    if set(os.listdir(sub)) != want or sorted(rays) != ['sample0',
+                                                        'sample1']:
+        raise RuntimeError(f'phase 14d: submission files '
+                           f'{sorted(os.listdir(sub))}')
+    lines = {}
+    for i in range(2):
+        for f in range(1, futures + 1):
+            vals = np.loadtxt(f'{sub}/sample{i}_{f}.txt', ndmin=1)
+            lines[f'sample{i}_{f}'] = len(vals)
+            if (len(vals) != rays[f'sample{i}'].get(f)
+                    or not np.isfinite(vals).all()):
+                raise RuntimeError(f'phase 14d: sample{i}_{f}.txt holds '
+                                   f'{len(vals)} lines for '
+                                   f'{rays[f"sample{i}"].get(f)} rays')
+    print(f'phase 14d: {len(want)} depth files ({futures} future frames x '
+          f'2 samples), lines = rays of pred_dist, all finite: '
+          f'{json.dumps(lines)}; ego mask {cfg["data"]["test"]["ego_mask"]},'
+          f' history {cfg["data"]["test"]["queue_length"]} frames',
+          flush=True)
+    shutil.rmtree(sub)
+
+
+def _phase14(counted, card, check, tmp, data, os_data, fixture_pkl,
+             dev='cuda:0'):
+    """Phase 14: the released configs that no earlier phase runs, at their
+    widths, through the CLIs on phase 9's fixtures with PyTorch's default
+    numerics switches (a: ``bevformer_small.py`` 1 step and the detection
+    eval of 1 sample; b: ``bevformer_tiny.py`` likewise, from init, with no
+    DCN kernel; c: the 1-future fine-tune (grid step 1.0) 1 step; d: the
+    OpenScene submission; e: ``vidar_track_map.py`` and ``base_e2e.py`` 1
+    step each at a 2-frame clip; f: the fine-tune with cudnn's TF32 switch
+    on against off as the CLI starts). Each run's wall time, s/it, peak
+    memory and launches are printed; ``check(run, keepers, launches)``
+    holds the kernels against their plain versions on the inputs of every
+    run but ``base_e2e`` and f's. -> {run: launches}."""
+    from vidar_tpu_torch.core.config import load_config
+    from vidar_tpu_torch.ops import dcn, latent_render, msda
+    from vidar_tpu_torch.tools import test as test_cli
+    from vidar_tpu_torch.tools import train as train_cli
+
+    dev = torch.device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    msda_k = [msda.KERNEL, msda.BACKWARD]
+    render = [latent_render.FIRST_HIT, latent_render.AGGREGATE]
+    render_bwd = [latent_render.FIRST_HIT_BACKWARD,
+                  latent_render.AGGREGATE_BACKWARD]
+    bf16 = [dcn.KERNEL, dcn.SAMPLE16]
+    # each run's kernels that must launch and those that must not
+    kernels = {
+        'small_train': (msda_k + [dcn.SAMPLE], bf16 + render + render_bwd),
+        'small_eval': ([msda.KERNEL, dcn.SAMPLE], bf16 + render),
+        'tiny_train': (msda_k, bf16 + [dcn.SAMPLE] + render + render_bwd),
+        'tiny_eval': ([msda.KERNEL], bf16 + [dcn.SAMPLE] + render),
+        'ft_1future': (msda_k + [dcn.SAMPLE] + render + render_bwd, bf16),
+        'submission': ([msda.KERNEL, dcn.SAMPLE] + render, bf16),
+        'vidar_track_map': (msda_k + [dcn.SAMPLE] + render + render_bwd,
+                            bf16),
+        'base_e2e': (msda_k + [dcn.SAMPLE], bf16 + render + render_bwd),
+        'tf32_on': (msda_k + [dcn.SAMPLE] + render + render_bwd, bf16),
+        'tf32_off': (msda_k + [dcn.SAMPLE] + render + render_bwd, bf16),
+    }
+    runs, spans = {}, {}
+    t0 = time.perf_counter()
+
+    def run(name, fn, argv, keep=False, keepers=None):
+        train = fn is train_cli.main
+        if keep and keepers is None:
+            keepers = _cli_keepers(f'p14_{name}', train)
+        out, launches = _cli_run(counted, card, f'p14_{name}', fn, argv,
+                                 keepers)
+        runs[f'p14_{name}'] = launches
+        _need(name, launches, *kernels[name], phase=14)
+        if keepers is not None:
+            t_check = time.perf_counter()
+            check(f'p14_{name}', keepers, launches)
+            print(f'p14_{name}: the kernel checks took '
+                  f'{time.perf_counter() - t_check:.1f} s', flush=True)
+        return out
+
+    def span(label):
+        spans[label] = time.perf_counter() - t0 - sum(spans.values())
+
+    # a, b: BEVFormer-small and -tiny; their released load_from (an
+    # FCOS3D and a torchvision R50 .pth) is not in the checkout, so the
+    # train CLI trains from init
+    opts = data + ['log_interval=1']
+    for name, cfg_path in (('small', BEVFORMER_SMALL_CONFIG),
+                           ('tiny', BEVFORMER_TINY_CONFIG)):
+        work = f'{tmp}/p14_{name}'
+        out = run(f'{name}_train', train_cli.main,
+                  [str(cfg_path), '--work-dir', work, '--max-steps', '1',
+                   '--cfg-options', *opts], keep=True)
+        _train_log(f'p14_{name}_train', out, 1)
+        if out['loaded'] or out['torch_import'] is not None:
+            raise RuntimeError(f'phase 14 {name}: loaded {out["loaded"]} '
+                               f'tensors, not trained from init')
+        del out
+        metrics = run(f'{name}_eval', test_cli.main,
+                      [str(cfg_path), f'{work}/latest', '--max-samples', '1',
+                       '--cfg-options', *data], keep=True)
+        _finite_metrics(f'p14_{name}_eval', metrics, ('NDS', 'mAP'))
+        m = load_config(str(cfg_path))['model']
+        print(f'phase 14{"a" if name == "small" else "b"}: '
+              f'{cfg_path.relative_to(ROOT)} (BEV {m["bev_h"]}x'
+              f'{m["bev_w"]}, {m["encoder_num_layers"]} encoder layers, '
+              f'R{m["backbone_depth"]}, DCN {m["backbone_dcn"]}) from init: '
+              f'NDS {float(metrics["NDS"]):.4f}, mAP '
+              f'{float(metrics["mAP"]):.4f}', flush=True)
+        shutil.rmtree(work)
+        span('14a' if name == 'small' else '14b')
+
+    # c: the 1-future fine-tune, grid step 1.0
+    out = run('ft_1future', train_cli.main,
+              [str(FINETUNE_1FUTURE_CONFIG), '--work-dir',
+               f'{tmp}/p14_ft_1future', '--max-steps', '1', '--cfg-options',
+               *opts], keep=True)
+    _train_log('p14_ft_1future', out, 1)
+    del out
+    shutil.rmtree(f'{tmp}/p14_ft_1future')
+    span('14c')
+
+    _phase14_submission(run, os_data, tmp)
+    span('14d')
+
+    # e: UniAD's track-map stage with latent rendering and the e2e stage
+    # without, at a 2-frame clip, on phase 11's UniAD fixture
+    pkl = _uniad_fixture(fixture_pkl, tmp)
+    udata = [f'data.{s}.{k}={v}' for s in ('train', 'test')
+             for k, v in (('ann_file', pkl), ('data_root', tmp))]
+    udata += [f'data.train.queue_length={UNIAD_SHORT_CLIP - 1}',
+              'log_interval=1']
+    for name, cfg_path in (('vidar_track_map', UNIAD_VIDAR_TRACK_MAP_CONFIG),
+                           ('base_e2e', UNIAD_BASE_E2E_CONFIG)):
+        keepers = (_uniad_keepers(load_config(str(cfg_path))['model'],
+                                  f'p14_{name}', train=True)
+                   if name == 'vidar_track_map' else None)
+        out = run(name, train_cli.main,
+                  [str(cfg_path), '--work-dir', f'{tmp}/p14_{name}',
+                   '--max-steps', '1', '--cfg-options', *udata],
+                  keepers=keepers)
+        _train_log(f'p14_{name}', out, 1)
+        del out
+        shutil.rmtree(f'{tmp}/p14_{name}')
+    print(f'phase 14e: vidar_track_map.py and base_e2e.py at a '
+          f'{UNIAD_SHORT_CLIP}-frame clip (depth cut: the configs\' 6 '
+          f'frames run in phase 11a-b)', flush=True)
+    span('14e')
+
+    _phase14_tf32(run, data, tmp, dev)
+    span('14f')
+    print(f'phase 14: {time.perf_counter() - t0:.1f} s '
+          f'({json.dumps({k: round(v, 1) for k, v in spans.items()})})',
+          flush=True)
+    return runs
+
+
 # ------------------------------------- phase 10: data parallelism
 
 # phase 10a's comparison of two ranks with one bs-2 process, as phase 5's
@@ -3804,7 +4112,7 @@ def _phase10_rank(r, port, path):
         dev = local_device('cuda')
         model, batch, det, det_batch = _dp_inputs(dev)
         batch, det_batch = _take(batch, r), _take(det_batch, r)
-        out = _dp_run(model, batch, det, det_batch, dev, timed_steps=2)
+        out = _dp_run(model, batch, det, det_batch, dev, timed_steps=1)
         out['backend'], out['device'] = dist.get_backend(), str(dev)
         if r:
             for part in ('pretrain', 'finetune'):
@@ -3900,7 +4208,7 @@ def _phase10a(card, tmp):
     _spawn_ranks(_phase10_rank, [(r, port, paths[r]) for r in range(2)])
     ranks = [torch.load(p, weights_only=False) for p in paths]
     print(f'phase 10a: the two ranks ran in {time.perf_counter() - t0:.1f} '
-          f's (spawn, build load, setup, 3 + 1 steps)', flush=True)
+          f's (spawn, build load, setup, 2 + 1 steps)', flush=True)
     for part in ('pretrain', 'finetune'):
         a, b = (res[part] for res in ranks)
         if a['digests'] != b['digests'] or a['metrics'] != b['metrics']:
@@ -3937,17 +4245,16 @@ def _phase10a(card, tmp):
 
 
 def _phase10b(card, tmp, data):
-    """The train CLI (2 steps) and the test CLI's forecast eval (2
+    """The train CLI (1 step) and the test CLI's forecast eval (2
     samples) on the released pre-training config with ``--coordinator
     --num-processes 1 --process-id 0`` (NCCL), against the same runs
     without a process group. Both evals read the single run's checkpoint.
-    Every run loads one sample at a time (the train CLI's
-    ``--deterministic``; the test CLI's loader set to one thread here):
-    with the CLIs' 4 loader threads the train split's augmentation and the
-    test split's point subsample (above ``max_points``) draw from the
-    dataset's one RNG in the threads' order (ROADMAP.md §3)."""
+    The train runs load one sample at a time (``--deterministic``): with
+    the CLI's 4 loader threads the train split's augmentation draws from
+    the dataset's one RNG in the threads' order. The evals load on the
+    test CLI's 4 threads: the test split's point subsample (above
+    ``max_points``) is drawn from (seed, frame index) alone."""
     import torch.distributed as dist
-    from vidar_tpu_torch.data.prefetch import PrefetchLoader
     from vidar_tpu_torch.tools import test as test_cli
     from vidar_tpu_torch.tools import train as train_cli
     opts = data + ['data.train.load_frame_interval=1', 'log_interval=1']
@@ -3960,15 +4267,9 @@ def _phase10b(card, tmp, data):
             return fn(args)
         return wrapped
 
-    def samples_one_thread(dataset, indices):
-        return iter(PrefetchLoader(dataset.__getitem__, indices,
-                                   num_threads=1, depth=2))
-
-    train, evaluate, samples = (train_cli._train, test_cli._evaluate,
-                                test_cli._samples)
+    train, evaluate = train_cli._train, test_cli._evaluate
     train_cli._train = probe(train, 'train')
     test_cli._evaluate = probe(evaluate, 'test')
-    test_cli._samples = samples_one_thread
     runs = {}
     try:
         for mode in ('single', 'nccl'):
@@ -3977,7 +4278,7 @@ def _phase10b(card, tmp, data):
             t0 = time.perf_counter()
             out = train_cli.main(
                 [str(PRETRAIN_CONFIG), '--work-dir', f'{tmp}/dp_{mode}',
-                 '--max-steps', '2', '--deterministic',
+                 '--max-steps', '1', '--deterministic',
                  *(flags + [f'127.0.0.1:{_free_port()}'] if flags else []),
                  '--cfg-options', *opts])
             metrics = test_cli.main(
@@ -3988,28 +4289,26 @@ def _phase10b(card, tmp, data):
             runs[mode] = (out['log'], metrics, dict(backends))
             print(f'phase 10b {mode}: backend during the train run '
                   f'{backends["train"]}, during the eval {backends["test"]};'
-                  f' {time.perf_counter() - t0:.1f} s for 2 steps and 2 '
+                  f' {time.perf_counter() - t0:.1f} s for 1 step and 2 '
                   f'eval samples on {card}', flush=True)
     finally:
-        train_cli._train, test_cli._evaluate, test_cli._samples = (
-            train, evaluate, samples)
+        train_cli._train, test_cli._evaluate = train, evaluate
     (log_s, met_s, be_s), (log_n, met_n, be_n) = runs['single'], runs['nccl']
     keys = [k for k in log_s[0] if k.startswith('frame.') or k == 'loss']
-    errs = [max(abs(n[k] - s[k]) / max(abs(s[k]), 1e-12) for k in keys)
-            for s, n in zip(log_s, log_n)]
+    err = max(abs(log_n[0][k] - log_s[0][k]) / max(abs(log_s[0][k]), 1e-12)
+              for k in keys)
     flat_s = {f'{f}.{k}': v for f, fv in met_s.items() for k, v in fv.items()}
     flat_n = {f'{f}.{k}': v for f, fv in met_n.items() for k, v in fv.items()}
     eval_err = max(abs(flat_n[k] - v) / max(abs(v), 1e-12)
                    for k, v in flat_s.items())
     print(f'phase 10b: NCCL at world size 1 vs no process group: step 1 '
-          f'losses max rel diff {errs[0]:.3g}, step 2 {errs[1]:.3g} (after '
-          f'an update through the backward kernels\' atomics); forecast '
-          f'eval metrics max rel diff {eval_err:.3g}; step 1 loss '
+          f'losses max rel diff {err:.3g}; forecast eval metrics (4 loader '
+          f'threads) max rel diff {eval_err:.3g}; step 1 loss '
           f'{log_n[0]["loss"]:.6f} vs {log_s[0]["loss"]:.6f}', flush=True)
     if be_s != {'train': None, 'test': None} or be_n != {'train': 'nccl',
                                                          'test': 'nccl'}:
         raise RuntimeError(f'phase 10b: backends {be_s} and {be_n}')
-    if errs[0] > DP_CLI_RTOL or eval_err > DP_CLI_RTOL or sorted(
+    if err > DP_CLI_RTOL or eval_err > DP_CLI_RTOL or sorted(
             flat_s) != sorted(flat_n):
         raise RuntimeError('phase 10b: the NCCL run differs from the run '
                            'without a process group')
@@ -4025,10 +4324,10 @@ def _phase11c_rank(r, port, path, frames):
     of two ranks on the one card, builds ``vidar_e2e.py`` (f32, seed 0,
     dropout off, rank 0's weights broadcast), takes its own ``frames``-frame
     clip (rank 0: 40 agents and 8 map elements, rank 1: 24 and 3, other
-    images), runs a counted warm-up ``UniADTrainStep`` and a timed one with
-    the gradient all-reduce timed inside, and saves the metrics, launches,
-    times, gradient bytes, peak memory and the parameters' digest after
-    each step to ``path``. Out of device memory it exits at once with
+    images), runs one counted ``UniADTrainStep`` (its warm-up included)
+    with the gradient all-reduce timed inside, and saves the metrics,
+    launches, time, gradient bytes, peak memory and the parameters' digest
+    after the step to ``path``. Out of device memory it exits at once with
     ``UNIAD_DP_OOM_EXIT`` (the other rank, waiting in a collective, is
     ended by ``_join_ranks``)."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4082,23 +4381,17 @@ def _phase11c_rank(r, port, path, frames):
         for k in kernels:
             k.launches = 0
         torch.cuda.reset_peak_memory_stats()
-        times, digests, metrics = [], [], []
-        for i in range(2):
-            t0 = time.perf_counter()
-            try:
-                metrics.append(step((clip, targets, command)))
-            except torch.cuda.OutOfMemoryError as e:
-                print(f'phase 11c rank {r}: out of device memory at '
-                      f'{frames} frames ({str(e).splitlines()[0][:120]})',
-                      flush=True)
-                os._exit(UNIAD_DP_OOM_EXIT)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            digests.append(_state_digest(model))
-            if i == 0:
-                launches = {k.name: k.launches for k in kernels}
-        out = dict(times=times, reduce_s=reduce_s, digests=digests,
-                   metrics=metrics, launches=launches,
+        t0 = time.perf_counter()
+        try:
+            metrics = step((clip, targets, command))
+        except torch.cuda.OutOfMemoryError as e:
+            print(f'phase 11c rank {r}: out of device memory at {frames} '
+                  f'frames ({str(e).splitlines()[0][:120]})', flush=True)
+            os._exit(UNIAD_DP_OOM_EXIT)
+        torch.cuda.synchronize()
+        out = dict(times=[time.perf_counter() - t0], reduce_s=reduce_s,
+                   digests=[_state_digest(model)], metrics=[metrics],
+                   launches={k.name: k.launches for k in kernels},
                    grad_bytes=sum(p.grad.numel() * p.grad.element_size()
                                   for p in model.parameters()
                                   if p.grad is not None),
@@ -4113,9 +4406,9 @@ def _phase11c(card, tmp, fixture_pkl):
     """UniAD across processes: two Gloo ranks of ``vidar_e2e.py`` on the one
     card, each with a clip of its own, at the config's clip or, where a
     rank runs out of device memory, one frame fewer each time (a depth
-    cut, printed), their parameters bit-identical after each step; then
-    the UniAD train (1 step of the config's clip) and test CLIs (2
-    samples) on NCCL at world size 1; then, where the machine shows two
+    cut, printed), their parameters bit-identical after the step; then
+    the UniAD train (1 step of a 2-frame clip) and test CLIs (1 sample)
+    on NCCL at world size 1; then, where the machine shows two
     cards, the train CLI at two NCCL ranks on them at the config's clip.
     -> {rank: {kernel: launches}} of the ranks' warm-up steps."""
     import multiprocessing
@@ -4154,27 +4447,27 @@ def _phase11c(card, tmp, fixture_pkl):
     cut = 'none, ' if frames == frames_cfg else ''
     print(f'phase 11c: depth cut: {cut}{frames} of the config\'s '
           f'{frames_cfg} frames a rank; the two ranks ran in '
-          f'{time.perf_counter() - t0:.1f} s (spawn, build load, setup, 2 '
-          f'steps)', flush=True)
+          f'{time.perf_counter() - t0:.1f} s (spawn, build load, setup, 1 '
+          f'step)', flush=True)
     ranks = [torch.load(p, weights_only=False) for p in paths]
     a, b = ranks
     if a['digests'] != b['digests'] or a['metrics'] != b['metrics']:
         raise RuntimeError('phase 11c: the two ranks\' parameters or metrics '
                            'differ')
-    print(f'phase 11c: the ranks\' parameters bit-identical after each of '
-          f'{len(a["digests"])} steps; the global batch\'s metrics '
+    print(f'phase 11c: the ranks\' parameters bit-identical after the '
+          f'step; the global batch\'s metrics '
           f'{json.dumps(a["metrics"][0])}', flush=True)
     need = [msda.KERNEL, msda.BACKWARD, dcn.SAMPLE, latent_render.FIRST_HIT,
             latent_render.AGGREGATE, latent_render.FIRST_HIT_BACKWARD,
             latent_render.AGGREGATE_BACKWARD]
     for r, res in enumerate(ranks):
         print(f'phase 11c rank {r} ({res["backend"]} on {res["device"]}): '
-              f'steps {" ".join(f"{t:.4f}" for t in res["times"])} s/it (the '
-              f'first with warm-up; two ranks share the card: not a speed), '
+              f'step {res["times"][0]:.4f} s/it (with warm-up; two ranks '
+              f'share the card: not a speed), '
               f'gradient all-reduce {" ".join(f"{t:.4f}" for t in res["reduce_s"])} '
               f's a step for {res["grad_bytes"] / 2**20:.1f} MiB of f32 '
               f'gradients, peak memory {res["peak"] / 2**30:.2f} GiB; '
-              f'warm-up launches {json.dumps(res["launches"])} on {card}',
+              f'launches {json.dumps(res["launches"])} on {card}',
               flush=True)
         if res['backend'] != 'gloo':
             raise RuntimeError(f'phase 11c rank {r}: backend '
@@ -4214,12 +4507,14 @@ def _phase11c(card, tmp, fixture_pkl):
         out = train_cli.main([str(UNIAD_E2E_CONFIG), '--work-dir', work,
                               '--max-steps', '1', *flags,
                               f'127.0.0.1:{_free_port()}', '--cfg-options',
-                              *data, 'log_interval=1'])
+                              *data, 'log_interval=1',
+                              'data.train.queue_length='
+                              f'{UNIAD_SHORT_CLIP - 1}'])
         _train_log('uniad_nccl', out, 1)
         del out
         torch.cuda.empty_cache()
         metrics = test_cli.main([str(UNIAD_E2E_CONFIG), f'{work}/latest',
-                                 '--max-samples', '2', *flags,
+                                 '--max-samples', '1', *flags,
                                  f'127.0.0.1:{_free_port()}',
                                  '--cfg-options', *data])
     finally:
@@ -4227,8 +4522,8 @@ def _phase11c(card, tmp, fixture_pkl):
     _finite_metrics('uniad_nccl_eval', metrics, UNIAD_KEYS)
     if backends != {'train': 'nccl', 'test': 'nccl'}:
         raise RuntimeError(f'phase 11c: backends {backends}')
-    print(f'phase 11c: the UniAD train CLI (1 step of {frames_cfg} frames) '
-          f'and test CLI (2 samples) on NCCL at world size 1 in '
+    print(f'phase 11c: the UniAD train CLI (1 step of {UNIAD_SHORT_CLIP} '
+          f'frames) and test CLI (1 sample) on NCCL at world size 1 in '
           f'{time.perf_counter() - t0:.1f} s; ' + ', '.join(
               f'{k} {float(metrics[k]):.4f}' for k in UNIAD_KEYS), flush=True)
     shutil.rmtree(work)
@@ -4298,6 +4593,16 @@ def main() -> int:
                                        make_optimizer)
 
     dev = torch.device('cuda:0')
+    # each phase's seconds, printed as it ends and all together at the end
+    t_script = time.perf_counter()
+    phase_s = {}
+
+    def mark(label):
+        phase_s[label] = round(time.perf_counter() - t_script -
+                               sum(phase_s.values()), 1)
+        print(f'phase {label}: {phase_s[label]} s (script '
+              f'{time.perf_counter() - t_script:.1f} s)', flush=True)
+
     # -- phase 0: the card and the numerics switches
     card = _nvidia_smi()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4350,6 +4655,8 @@ def main() -> int:
                latent_render.FIRST_HIT.name: _Keeper(lambda a: 'encoder'),
                latent_render.AGGREGATE.name: _Keeper(lambda a: 'encoder')}
 
+    mark('0-1')
+
     # -- phase 2: the forecast at full width
     cfg = vidar_base()
     cfg['test_future_frame_num'] = 6
@@ -4377,6 +4684,8 @@ def main() -> int:
 
     tiny, tiny_cpu = _tiny_pair(vidar_tiny(use_grid_mask=False), dev, 1)
     _small_forecast_check(tiny, tiny_cpu, dev, 'vidar_tiny')
+
+    mark('2')
 
     # -- phase 3: every forward kernel against its plain version
     results = []
@@ -4497,6 +4806,8 @@ def main() -> int:
     if not all(oks):
         raise RuntimeError('a kernel disagrees with its plain version')
 
+    mark('3')
+
     # -- phase 4: a timed forecast
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -4517,6 +4828,8 @@ def main() -> int:
           f'{bs / dt:.4f} samples/s, peak memory {peak / 2**30:.2f} GiB '
           f'on {card}', flush=True)
     del model, runner, batch, out
+
+    mark('4')
 
     # -- phase 5: the pre-training step at full width; the warm-up step,
     # counted, keeps each backward kernel's first input
@@ -4666,12 +4979,12 @@ def main() -> int:
         raise RuntimeError('a backward kernel or K2 disagrees with its plain '
                            'version on the train step')
 
-    # two timed steps, then the forward alone as the step runs it (autograd
+    # a timed step, then the forward alone as the step runs it (autograd
     # on, activations saved), its graph freed without a backward
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     times = []
-    for _ in range(2):
+    for _ in range(TIMED_STEPS):
         t0 = time.perf_counter()
         metrics = step(tr_batch)
         torch.cuda.synchronize()
@@ -4681,7 +4994,7 @@ def main() -> int:
         raise RuntimeError('non-finite train metrics in the timed steps')
     fwd = []
     tr_model.train()
-    for _ in range(2):
+    for _ in range(TIMED_STEPS):
         t0 = time.perf_counter()
         losses = tr_model(tr_batch, generator=step.generator,
                           gumbel_generator=step.generator,
@@ -4702,6 +5015,8 @@ def main() -> int:
 
     del tr_model, step, tr_batch
     torch.cuda.empty_cache()
+
+    mark('5')
 
     # -- phase 6: the f32 fine-tune at full width and depth, the full-window
     # eval and three streamed frames; every count set to 0 around them
@@ -4842,6 +5157,8 @@ def main() -> int:
           f'peak memory {stream_peak / 2**30:.2f} GiB on {card}', flush=True)
     del full, stream, samples
 
+    mark('6')
+
     # -- phase 7: the fine-tune train step at the same shapes
     torch.cuda.empty_cache()
     det_step = DetTrainStep(det, make_optimizer(det, device=dev),
@@ -4930,12 +5247,12 @@ def main() -> int:
         raise RuntimeError('a backward kernel or K9 disagrees with its plain '
                            'version on the fine-tune path')
 
-    # two timed steps; then one with the host's Hungarian calls timed on
+    # a timed step; then one with the host's Hungarian calls timed on
     # their own (a synchronisation before each)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     times = []
-    for _ in range(2):
+    for _ in range(TIMED_STEPS):
         t0 = time.perf_counter()
         metrics = det_step(det_batch)
         torch.cuda.synchronize()
@@ -4968,6 +5285,8 @@ def main() -> int:
           f'scipy, after a synchronisation) on {card}', flush=True)
     del det_step, det, det_batch
     torch.cuda.empty_cache()
+
+    mark('7')
 
     # -- phase 8: the bf16 forecast with a deformable conv in every ResNet
     # stage; stage 1 (C = CO = 64) is a shape K2 does not take
@@ -5083,9 +5402,15 @@ def main() -> int:
                 dcn.SAMPLE, case, a,
                 lambda args=args: dcn.dcn_sample_cuda(*args),
                 lambda args=args: dcn.dcn_sample_plain(*args), n))
-        oks += compare_render(keepers, f'{run}:encoder', n)
+        # a model without latent rendering (BEVFormer, UniAD's base
+        # stages) keeps no K3 input
+        render = (f'{run}:encoder' in
+                  keepers[latent_render.FIRST_HIT.name].inputs)
+        if render:
+            oks += compare_render(keepers, f'{run}:encoder', n)
         if msda.BACKWARD.name in keepers:
-            oks += compare_backwards(keepers, f'{run}:encoder', n)
+            oks += (compare_backwards(keepers, f'{run}:encoder', n)
+                    if render else compare_msda_backwards(keepers, n))
         print(f'{run}: {len(oks)} kernel cases against their plain '
               f'versions on the CLI\'s own inputs, '
               f'{sum(oks)} within tolerance', flush=True)
@@ -5174,34 +5499,43 @@ def main() -> int:
             raise RuntimeError(f'{run}: a kernel disagrees with its plain '
                                f'version')
 
+    mark('8')
     with tempfile.TemporaryDirectory() as fixture_dir:
-        cli, data = _phase9(counted, card, check_cli, fixture_dir)
+        cli, data, os_data = _phase9(counted, card, check_cli, fixture_dir)
+        fixture_pkl = data[0].split('=', 1)[1]
+        mark('9')
 
         # -- phase 10: data parallelism across processes
-        t0 = time.perf_counter()
         dp = _phase10a(card, fixture_dir)
         _phase10b(card, fixture_dir, data)
         _phase10c(card, fixture_dir, data)
-        print(f'phase 10: {time.perf_counter() - t0:.1f} s', flush=True)
+        mark('10')
 
         # -- phase 11: UniAD, the library and the CLIs
-        t0 = time.perf_counter()
-        uniad = _phase11(counted, card, check_cli, fixture_dir,
-                         data[0].split('=', 1)[1])
-        print(f'phase 11a-b: {time.perf_counter() - t0:.1f} s', flush=True)
-        t0 = time.perf_counter()
-        uniad_dp = _phase11c(card, fixture_dir, data[0].split('=', 1)[1])
-        print(f'phase 11c: {time.perf_counter() - t0:.1f} s', flush=True)
+        uniad = _phase11(counted, card, check_cli, fixture_dir, fixture_pkl)
+        mark('11a-b')
+        uniad_dp = _phase11c(card, fixture_dir, fixture_pkl)
+        mark('11c')
 
         # -- phase 12: the data path from raw tables, the rest of the
         # fine-tune, the analysis tools and the video step
         later, tables = _phase12(counted, card, check_bf16, fixture_dir,
                                  forecast_s)
+        mark('12')
 
         # -- phase 13: the BEVFormerV2 family, the voxel renderer and the
         # visualisation tool
         v2_runs = _phase13(counted, card, check_v2, dev, fixture_dir,
                            tables, data)
+        mark('13')
+
+        # -- phase 14: the released configs no earlier phase runs, and the
+        # CLIs' TF32 against f32
+        matrix = _phase14(counted, card, check_cli, fixture_dir, data,
+                          os_data, fixture_pkl)
+        mark('14')
+    print(f'phase seconds: {json.dumps(phase_s)}; the script '
+          f'{time.perf_counter() - t_script:.1f} s on {card}', flush=True)
 
     for r in results:
         base = r['name'].split('[')[0]
@@ -5216,7 +5550,8 @@ def main() -> int:
             r[f'dp_finetune_rank{rank}_launches'] = parts['finetune'][base]
         for rank, launches in uniad_dp.items():
             r[f'uniad_dp_rank{rank}_launches'] = launches[base]
-        for run, launches in {**uniad, **later, **v2_runs}.items():
+        for run, launches in {**uniad, **later, **v2_runs,
+                              **matrix}.items():
             r[f'{run}_launches'] = launches[base]
     print(json.dumps({'kernels': results}))
     print(json.dumps({'ok': True, 'device': {

@@ -38,6 +38,7 @@ from vidar_tpu_torch.core.builder import build_dataset, build_model
 from vidar_tpu_torch.core.checkpoint import (load_params_partial,
                                              save_checkpoint)
 from vidar_tpu_torch.core.config import apply_overrides, load_config
+from vidar_tpu_torch.device import use_f32_convolutions
 from vidar_tpu_torch.evals.forecast_runner import ForecastRunner
 from vidar_tpu_torch.evals.metrics import forecast_metrics
 from vidar_tpu_torch.tools import test as test_cli
@@ -92,7 +93,15 @@ def test_forecast_metrics_match_jax(fake, tmp_path):
     root, data = fake
     cfg = jax_apply_overrides(jax_load_config(TINY), data)
     jmodel = jax_build_model(cfg['model'])
-    jbatch = jax_build_dataset(cfg['data']['test'])[0]
+    # the port's sample 0 and JAX's, on the port's lidar points: above
+    # max_points the port's test split draws the window's subsample from
+    # (seed, frame index), JAX's from its dataset's stream (ROADMAP.md §3,
+    # departures)
+    tcfg = apply_overrides(load_config(TINY), data)
+    tbatch = build_dataset(tcfg['data']['test'])[0]
+    jbatch = jax_build_dataset(cfg['data']['test'])[0].replace(
+        gt_points=jax.numpy.asarray(tbatch.gt_points.numpy()),
+        gt_tindex=jax.numpy.asarray(tbatch.gt_tindex.numpy()))
     key = jax.random.PRNGKey(0)
     shapes = jax.eval_shape(lambda: jmodel.init(
         {'params': key, 'dropout': key}, jbatch, train=False))
@@ -119,10 +128,8 @@ def test_forecast_metrics_match_jax(fake, tmp_path):
 
     # the decode of the port's runner on the port's sample 0, the model
     # loaded from that checkpoint: test_torch_vidar.py's tolerances
-    tcfg = apply_overrides(load_config(TINY), data)
     model = build_model(tcfg['model'], device='cpu').eval()
     assert load_params_partial(ckpt, model) == (len(model.state_dict()), 0)
-    tbatch = build_dataset(tcfg['data']['test'])[0]
     got = ForecastRunner(model, tbatch.images.shape[3:5],
                          num_future=num_future, device='cpu')(tbatch)
     got = {k: v.numpy() for k, v in got.items()}
@@ -192,6 +199,51 @@ def test_train_resume_ema_and_test(fake, pretrained):
     assert _finite(v for fv in metrics.values() for v in fv.values())
     # one depth file for each future frame of the sample
     assert os.listdir(sub) == ['sample0_1.txt']
+
+
+def test_forecast_eval_does_not_depend_on_load_order(fake):
+    # the test CLI twice in one process on 4 loader threads: each window
+    # holds more lidar points than max_points (3 frames of about 768
+    # against 256), and each sample's subsample is drawn from (seed, frame
+    # index), whatever was loaded before it, so the metrics are equal
+    _, data = fake
+    argv = [TINY, '--max-samples', '3', '--device', 'cpu', '--cfg-options',
+            *data]
+    first = test_cli.main(argv)
+    assert _finite(v for fv in first.values() for v in fv.values())
+    assert test_cli.main(argv) == first
+
+
+def test_clis_compute_an_f32_models_convolutions_in_f32(fake, tmp_path,
+                                                         monkeypatch):
+    # cuDNN's TF32 switch as each CLI's model runs: off for an f32 model,
+    # whatever the caller set (PyTorch's default is on); the caller's
+    # setting back after each CLI
+    _, data = fake
+    seen = []
+    step, runner = train_cli.TrainStep.__call__, ForecastRunner.__call__
+    monkeypatch.setattr(train_cli.TrainStep, '__call__', lambda self, b: (
+        seen.append(torch.backends.cudnn.allow_tf32) or step(self, b)))
+    monkeypatch.setattr(ForecastRunner, '__call__', lambda self, b: (
+        seen.append(torch.backends.cudnn.allow_tf32) or runner(self, b)))
+    monkeypatch.setattr(torch.backends.cudnn, 'allow_tf32', True)
+    work = str(tmp_path / 'work')
+    train_cli.main([TINY, '--work-dir', work, '--max-steps', '1', '--device',
+                    'cpu', '--cfg-options', *data])
+    assert torch.backends.cudnn.allow_tf32
+    test_cli.main([TINY, os.path.join(work, 'latest'), '--max-samples', '1',
+                   '--device', 'cpu', '--cfg-options', *data])
+    assert seen == [False, False] and torch.backends.cudnn.allow_tf32
+
+
+@pytest.mark.parametrize('dtype', [None, torch.bfloat16],
+                         ids=['float32', 'bfloat16'])
+def test_only_an_f32_model_turns_tf32_off(monkeypatch, dtype):
+    cfg = load_config(TINY)['model']
+    model = build_model(cfg, device='cpu', dtype=dtype)
+    monkeypatch.setattr(torch.backends.cudnn, 'allow_tf32', True)
+    use_f32_convolutions(model)
+    assert torch.backends.cudnn.allow_tf32 == (dtype is not None)
 
 
 @pytest.fixture(scope='module')

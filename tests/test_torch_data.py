@@ -1,13 +1,14 @@
 """The port's data layer against the JAX package's and Pillow: the nuScenes
 and OpenScene datasets on the fake on-disk dataset of
-``tests/data/fake_nuscenes.py`` (same seed, every array exactly equal), the
-Pillow-equal resize, crop, flip and PNG reader (C++ and numpy, exactly
-equal to PIL), and the plumbing under the CLIs (configs, sampler, eval
-hook, EMA, forecast metrics)."""
+``tests/data/fake_nuscenes.py`` (same seed, every array exactly equal, but
+the test split's lidar subsample, held to its (seed, frame index) draw from
+JAX's window), the Pillow-equal resize, crop, flip and PNG reader (C++ and
+numpy, exactly equal to PIL), and the plumbing under the CLIs (sampler,
+eval hook, EMA, forecast metrics). The config loading is
+``tests/test_torch_config_matrix.py``'s."""
 
 import dataclasses
 import os
-import pathlib
 
 import numpy as np
 import pytest
@@ -18,7 +19,6 @@ import jax
 import jax.numpy as jnp
 
 from vidar_tpu import native as jax_native
-from vidar_tpu.core import config as jax_config
 from vidar_tpu.data import samplers as jax_samplers
 from vidar_tpu.data.nuplan import NuPlanViDARDataset as JaxNuPlan
 from vidar_tpu.data.nuscenes import NuScenesDetDataset as JaxDet
@@ -29,17 +29,16 @@ from vidar_tpu.train.eval_hook import EvalHook as JaxEvalHook
 
 from tests.data.fake_nuscenes import make_fake_nuscenes
 from vidar_tpu_torch import native
-from vidar_tpu_torch.core import config
 from vidar_tpu_torch.data import collate_samples, pipeline, samplers
 from vidar_tpu_torch.data.nuplan import NuPlanViDARDataset
 from vidar_tpu_torch.data.nuscenes import (NuScenesDetDataset,
                                            NuScenesViDARDataset)
+from vidar_tpu_torch.data.prefetch import PrefetchLoader
 from vidar_tpu_torch.data.structures import DetBatch, ViDARBatch
 from vidar_tpu_torch.evals import metrics
 from vidar_tpu_torch.train.ema import EMA
 from vidar_tpu_torch.train.eval_hook import EvalHook
 
-ROOT = pathlib.Path(__file__).resolve().parents[1]
 H, W = 64, 96
 # the flagship's resize targets (720..1080 of 900 rows) at the fixture's
 # 64 rows: factors 0.797..1.203
@@ -47,6 +46,12 @@ AUG = dict(reisze=[51, 58, 64, 70, 77], crop=(0, 0, W, H), H=H, W=W,
            rand_flip=True)
 COMMON = dict(queue_length=2, future_length=2, bev_size=(12, 12),
               max_points=512, seed=3)
+# above the points of any window of the fake samples (about 768 a frame)
+WINDOW_ALL = 8192
+# the test split's subsample above max_points is drawn from
+# default_rng([seed, frame index]), not from JAX's one stream (ROADMAP.md
+# §3, departures): these fields are held to that draw from JAX's window
+SEEDED_DRAW = ('gt_points', 'gt_tindex')
 
 
 @pytest.fixture(scope='module')
@@ -90,6 +95,9 @@ CASES = {
                          dict(COMMON, random_aug_conf=AUG,
                               rand_frame_interval=(-1, 1))),
     'test': (JaxViDAR, NuScenesViDARDataset, dict(COMMON, test_mode=True)),
+    # every point of the 5-frame window kept: no subsample on either side
+    'test_all_points': (JaxViDAR, NuScenesViDARDataset,
+                        dict(COMMON, test_mode=True, max_points=WINDOW_ALL)),
     'det': (JaxDet, NuScenesDetDataset,
             dict(COMMON, future_length=0, test_mode=True, max_gt=16)),
     'det_pretrain_data': (JaxDet, NuScenesDetDataset,
@@ -106,9 +114,27 @@ def test_dataset_matches_jax(fake, case):
     pkl = fake[1] if case == 'nuplan' else fake[0]
     ref, ds = jax_cls(pkl, **kwargs), cls(pkl, **kwargs)
     assert ds.usable_index == ref.usable_index and len(ds) > 0
+    # JAX's whole window, where the test split subsamples it
+    whole = (jax_cls(pkl, **dict(kwargs, max_points=WINDOW_ALL))
+             if kwargs.get('test_mode') else None)
+    drawn = 0
     for i in range(min(len(ds), 3)):
         want, got = _fields(ref[i]), _fields(ds[i])
         assert sorted(got) == sorted(want)
+        if whole is not None:
+            window = _fields(whole[i])
+            pts_key = next(k for k in window if k.endswith('gt_points'))
+            n = int((window[pts_key.replace('gt_points', 'gt_tindex')]
+                     >= 0).sum())
+            assert n < WINDOW_ALL
+            if n > kwargs['max_points']:
+                drawn += 1
+                sel = np.random.default_rng(
+                    [kwargs['seed'], ds.usable_index[i]]).choice(
+                        n, kwargs['max_points'], replace=False)
+                for k in want:
+                    if k.endswith(SEEDED_DRAW):
+                        want[k] = window[k][:, sel]
         for k in want:
             assert got[k].dtype == want[k].dtype, (case, i, k)
             np.testing.assert_array_equal(got[k], want[k],
@@ -120,6 +146,46 @@ def test_dataset_matches_jax(fake, case):
             assert got_m['scene_token'] == want_m['scene_token']
             for k in ('can_bus', 'l2g_rot'):
                 np.testing.assert_array_equal(got_m[k], want_m[k])
+    # the subsample ran where the window exceeds max_points, and only there
+    assert drawn == (0 if case == 'test_all_points' or whole is None
+                     else min(len(ds), 3)), drawn
+
+
+@pytest.mark.parametrize('cls', [NuScenesViDARDataset, NuScenesDetDataset])
+def test_test_split_points_do_not_depend_on_load_order(fake, cls):
+    # the subsample above max_points is a function of (seed, frame index):
+    # two fresh datasets loaded in the orders 0, 1, 2 and 2, 0, 1, and a
+    # third through 4 loader threads, give equal samples
+    kwargs = dict(COMMON, test_mode=True)
+    if cls is NuScenesDetDataset:
+        kwargs.update(future_length=0, max_gt=16)
+    a, b, c = (cls(fake[0], **kwargs) for _ in range(3))
+    first = {i: _fields(a[i]) for i in (0, 1, 2)}
+    second = {i: _fields(b[i]) for i in (2, 0, 1)}
+    threaded = dict(enumerate(
+        _fields(s) for s in PrefetchLoader(c.__getitem__, [0, 1, 2],
+                                           num_threads=4, depth=3)))
+    whole = cls(fake[0], **dict(kwargs, max_points=WINDOW_ALL))
+    for i in (0, 1, 2):
+        for k in first[i]:
+            np.testing.assert_array_equal(second[i][k], first[i][k],
+                                          err_msg=f'{i} {k}')
+            np.testing.assert_array_equal(threaded[i][k], first[i][k],
+                                          err_msg=f'{i} {k}')
+        window = _fields(whole[i])
+        pts = next(k for k in window if k.endswith('gt_points'))
+        tix = pts.replace('gt_points', 'gt_tindex')
+        n = int((window[tix] >= 0).sum())
+        assert n > COMMON['max_points']
+        sel = np.random.default_rng([COMMON['seed'],
+                                     a.usable_index[i]]).choice(
+            n, COMMON['max_points'], replace=False)
+        np.testing.assert_array_equal(first[i][pts], window[pts][:, sel])
+        np.testing.assert_array_equal(first[i][tix], window[tix][:, sel])
+        # a subset of the window's points (the draw takes no index twice)
+        assert len(set(sel.tolist())) == COMMON['max_points']
+        assert ({tuple(p) for p in first[i][pts][0]} <=
+                {tuple(p) for p in window[pts][0, :n]})
 
 
 def test_collate_samples(fake):
@@ -224,22 +290,6 @@ def test_png_reader_refuses_other_formats(tmp_path):
 
 
 # ---------------------------------------------------------------- plumbing
-
-CONFIGS = sorted(str(p.relative_to(ROOT)) for p in
-                 list(ROOT.glob('configs/vidar_*/**/*.py')) +
-                 list(ROOT.glob('configs/tiny/*.py')))
-
-
-@pytest.mark.parametrize('path', CONFIGS)
-def test_config_loading_matches_jax(path):
-    full = str(ROOT / path)
-    opts = ['model.embed_dims=64', 'data.train.queue_length=2',
-            'new.key=(1, 2)', 'optimizer.name=adamw']
-    want = jax_config.apply_overrides(jax_config.load_config(full), opts)
-    got = config.apply_overrides(config.load_config(full), opts)
-    assert got == want
-    assert config.dump_config(got) == jax_config.dump_config(want)
-
 
 @pytest.mark.parametrize('world_size', [1, 3])
 def test_samplers_match_jax(world_size):

@@ -73,9 +73,6 @@ GATE = (1.0, 0.0)
 REL_TOL = 1e-3
 UPDATE_TOL = 1e-4
 F32_EPS = float(np.finfo(np.float32).eps)
-# above the lidar points of a test window of the fake dataset (256 a
-# keyframe and as many in each of its 2 padded sweeps; at most 3 frames)
-ALL_POINTS = 4096
 
 
 def _random_params(shapes, seed):
@@ -382,13 +379,11 @@ def cli_runs(tmp_path_factory):
         train=[TINY, '--work-dir', work, '--max-steps', '2', '--device',
                'cpu', '--deterministic', '--cfg-options', *data,
                'log_interval=1'],
-        # every lidar point of the fake samples kept: the test split's
-        # subsample above max_points draws from the dataset's one RNG (as
-        # in JAX), so a sample's points would depend on the samples loaded
-        # before it in its process and on the loader threads' order
+        # above max_points (the fake windows hold more lidar points), each
+        # sample's subsample is drawn from (seed, frame index): a rank's
+        # samples equal the one process's
         test=[TINY, os.path.join(work, 'latest'), '--max-samples', '3',
-              '--device', 'cpu', '--cfg-options', *data,
-              f'data.test.max_points={ALL_POINTS}'])
+              '--device', 'cpu', '--cfg-options', *data])
     spec_file = str(root / 'spec.json')
     with open(spec_file, 'w') as f:
         json.dump(spec, f)

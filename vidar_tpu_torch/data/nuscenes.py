@@ -76,6 +76,7 @@ class NuScenesViDARDataset:
         self.max_points = max_points
         self.img_norm_mean = img_norm_mean
         self.img_norm_std = img_norm_std
+        self.seed = seed
         self.rng = np.random.default_rng(seed)
 
         with open(ann_file, 'rb') as f:
@@ -340,7 +341,14 @@ class NuScenesViDARDataset:
         pts = np.concatenate(pts_list)
         tindex = np.concatenate(tindex_list)
         if len(pts) > self.max_points:
-            sel = self.rng.choice(len(pts), self.max_points, replace=False)
+            # the train split draws from the dataset's stream, as JAX does;
+            # the test split's draw is a function of (seed, the sample's
+            # frame index) alone, so a sample's GT points do not depend on
+            # the samples loaded before it or on the loader threads' order
+            # (JAX draws both from the stream: a departure, ROADMAP.md)
+            rng = (np.random.default_rng([self.seed, index])
+                   if self.test_mode else self.rng)
+            sel = rng.choice(len(pts), self.max_points, replace=False)
             pts, tindex = pts[sel], tindex[sel]
         pad = self.max_points - len(pts)
         pts = np.pad(pts, ((0, pad), (0, 0)))

@@ -20,8 +20,10 @@ Usage:
       [--coordinator HOST:PORT --num-processes N --process-id R]
 
 It runs on the card (``--device cuda``, the default) unless the caller asks
-for the CPU. ``main(argv)`` returns the metrics, so a script can call it in
-the same process.
+for the CPU. A model that computes in f32 has its convolutions computed in
+f32 (cuDNN's TF32 off while it runs; ``device.use_f32_convolutions``).
+``main(argv)`` returns the metrics, so a script can call it in the same
+process.
 
 Across N processes (the three flags or the ``VIDAR_*`` environment, as the
 train CLI) the forecast eval splits the samples into N contiguous blocks,
@@ -50,6 +52,7 @@ from ..core.checkpoint import import_torch_checkpoint, load_params_partial
 from ..core.config import apply_overrides, load_config
 from ..data.prefetch import PrefetchLoader
 from ..data.samplers import contiguous_shard
+from ..device import use_f32_convolutions
 from ..evals.det_runner import CLASS_NAMES, DetectionRunner
 from ..evals.detection import evaluate_detection
 from ..evals.forecast_runner import ForecastRunner
@@ -355,9 +358,11 @@ def main(argv: Optional[Sequence[str]] = None):
     joined = maybe_initialize_distributed(
         args.coordinator, args.num_processes, args.process_id,
         device=args.device)
+    tf32 = torch.backends.cudnn.allow_tf32    # an f32 model turns it off
     try:
         return _evaluate(args)
     finally:
+        torch.backends.cudnn.allow_tf32 = tf32
         if joined:
             shutdown()
 
@@ -367,6 +372,7 @@ def _evaluate(args):
     cfg = apply_overrides(load_config(args.config), args.cfg_options)
     uniad = cfg['model'].get('type', 'ViDAR') == 'UniAD'
     model = build_model(cfg['model'], device=device)
+    use_f32_convolutions(model)
     dataset = build_dataset(cfg['data']['test'])
     load_model_weights(model, args.checkpoint)
     model.eval()

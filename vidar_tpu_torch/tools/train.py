@@ -17,8 +17,10 @@ Usage:
       [--coordinator HOST:PORT --num-processes N --process-id R]
 
 It runs on the card (``--device cuda``, the default) unless the caller asks
-for the CPU. ``main(argv)`` returns what it logged, so a script can call it
-in the same process.
+for the CPU. A model that computes in f32 has its convolutions computed in
+f32 (cuDNN's TF32 off while it runs; ``device.use_f32_convolutions``).
+``main(argv)`` returns what it logged, so a script can call it in the same
+process.
 
 Across N processes (the three flags, or ``VIDAR_COORDINATOR`` /
 ``VIDAR_NUM_PROCESSES`` / ``VIDAR_PROCESS_ID``; one process per card, NCCL;
@@ -48,6 +50,7 @@ from ..core.config import apply_overrides, dump_config, load_config
 from ..data.prefetch import PrefetchLoader
 from ..data.samplers import GroupShuffleSampler
 from ..data.structures import collate_samples
+from ..device import use_f32_convolutions
 from ..models import BEVFormer
 from ..parallel import (add_distributed_args, barrier, broadcast_object,
                         broadcast_parameters_, is_main, local_device,
@@ -91,9 +94,11 @@ def main(argv: Optional[Sequence[str]] = None):
     joined = maybe_initialize_distributed(
         args.coordinator, args.num_processes, args.process_id,
         device=args.device)
+    tf32 = torch.backends.cudnn.allow_tf32    # an f32 model turns it off
     try:
         return _train(args)
     finally:
+        torch.backends.cudnn.allow_tf32 = tf32
         if joined:
             shutdown()
 
@@ -114,6 +119,7 @@ def _train(args):
     # between the samples of its global batch
     torch.manual_seed(args.seed + rank())
     model = build_model(cfg['model'], device=device)
+    use_f32_convolutions(model)
     model.init_weights_(torch.Generator(device=device).manual_seed(
         args.seed))
     dataset = build_dataset(cfg['data']['train'])
